@@ -1,0 +1,103 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+CUDA wrapper reaches the plain version only for CPU tensors, and asking for
+CUDA without a card raises instead of running on the CPU."""
+
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import manifold_gp_tpu.config as jconfig
+import manifold_gp_torch as tmgp
+from manifold_gp_torch.config import InferenceConfig, resolve_device
+from manifold_gp_torch.ops import cuda_spmv
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "manifold_gp_tpu")
+
+
+def test_import_leaves_no_jax_in_sys_modules():
+    code = (
+        "import sys, manifold_gp_torch, manifold_gp_torch.ops.cuda_spmv, "
+        "manifold_gp_torch.ops.sparse_formats, manifold_gp_torch.utils; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
+        "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,)
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+PORT_FILES = sorted(
+    [ROOT / "chip_smoke.py"]
+    + list((ROOT / "examples_torch").glob("*.py"))
+    + list((ROOT / "manifold_gp_torch").rglob("*.py"))
+)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_files_do_not_import_jax(path):
+    assert path.exists()
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_cpu_wrapper_runs_plain_version_without_launching():
+    rng = np.random.default_rng(0)
+    blocks = torch.from_numpy(rng.standard_normal((2, 128, 256)).astype(np.float32))
+    bc = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
+    pv = torch.from_numpy(rng.standard_normal((256, 3)).astype(np.float32))
+    cuda_spmv.launch_count = 0
+    out = cuda_spmv.resident_matvec_call(bc, blocks, pv, s_max=2)
+    assert cuda_spmv.launch_count == 0
+    cb = pv.reshape(2, 128, 3)[bc.long()].reshape(2, 256, 3)
+    np.testing.assert_allclose(out.numpy(), torch.bmm(blocks, cb).reshape(256, 3).numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    x = np.random.default_rng(0).standard_normal((50, 2)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmgp.RiemannMaternKernel(nu=2, x=x, nearest_neighbors=5)  # default device
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_spmv_kernel_cuda_needs_a_cuda_device():
+    x = np.random.default_rng(0).standard_normal((50, 2)).astype(np.float32)
+    with pytest.raises(ValueError, match="cuda"):
+        tmgp.RiemannMaternKernel(nu=2, x=x, nearest_neighbors=5, device="cpu",
+                                 cfg=InferenceConfig(spmv_kernel="cuda"))
+    # the device alone picks the product: no value sends CUDA tensors to the
+    # plain version
+    for value in ("pallas", "torch"):
+        with pytest.raises(ValueError, match="spmv_kernel"):
+            InferenceConfig(spmv_kernel=value)
+
+
+def test_config_fields_match_jax():
+    jf = {f.name: f.default for f in dataclasses.fields(jconfig.InferenceConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(InferenceConfig)}
+    assert jf == tf  # every field, same defaults ("auto" SpMV kernel included)
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
