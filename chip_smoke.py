@@ -5,22 +5,37 @@
 
 Phases (any failure exits non-zero before the result line is printed):
   1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
-     build of the block-ELL SpMV kernel from csrc/ with nvcc (timed);
-  2. kernel vs plain at a small layout (10,240-point torus; B = 1, 37, 128):
-     f32, bf16 and x3 panels through both entry points (resident/stream);
-  3. the slice: serve the 262,144-point torus campaign
-     (examples_torch/run_large.py::serve_campaign) with the kernel's launch
-     count reset to 0 just before and read just after; requires >= 1,543
+     build of both block-ELL kernels from csrc/ with nvcc (timed);
+  2. kernels vs plain at a small layout (10,240-point torus; B = 1, 37, 128):
+     the forward SpMV with f32, bf16 and x3 panels through both entry points
+     (resident/stream); the panel-cotangent kernel with f32 and bf16 output;
+  3. the serving slice: serve the 262,144-point torus campaign
+     (examples_torch/run_large.py::serve_campaign) with the launch counts
+     reset to 0 just before and read just after; requires >= 1,543 forward
      launches, finite outputs and RMSE vs truth below half the label-noise
      floor;
-  4. kernel vs plain at the main path's own shapes (the served layout,
-     B = 125), with times: kernel (CUDA events, median, through
-     cuda_spmv.block_matvec as the basis solve calls it), plain version,
-     library yardstick (one torch.bmm over the pre-gathered operand, used
-     nowhere in the port) and the bound (bytes or operations at the card's
-     published peaks);
+  4. kernels vs plain at the main paths' own shapes (the served layout), with
+     times: kernel (CUDA events, median), plain version, library yardstick
+     (one torch.bmm over the pre-gathered operand, used nowhere in the port)
+     and the bound (bytes or operations at the card's published peaks). The
+     forward kernel at B = 125 (the basis solve's width; f32, bf16 and x3
+     panels) and at B = 1 and B = 48 with bf16 panels (the widths and panel
+     type of one training gradient) through cuda_spmv.block_matvec; the
+     panel-cotangent kernel at B = 1 and B = 48 through
+     cuda_spmv.block_bwd_blocks;
   5. the 16,384-point serve held to the JAX package's numbers
-     (examples_torch/serve_pins.json).
+     (examples_torch/serve_pins.json);
+  6. the training slice: train_campaign at 262,144 points (3 epochs of
+     manifold_informed_train from the campaign's initial hyperparameters,
+     then one gradient at the initial and one at the trained
+     hyperparameters), launch counts reset just before and read just after;
+     requires >= 12 panel-cotangent and >= 150 forward launches per
+     gradient, finite loss and gradients and a loss that falls; then one
+     gradient with panel-space cotangents for its peak memory;
+  7. the 16,384-point loss and gradients held to the JAX package's numbers
+     (examples_torch/train_pins.json), edge- against panel-space
+     cotangents on the card, and a checkpointed run resumed on the card
+     against the uninterrupted one.
 Then one JSON line with the kernel table, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -42,6 +57,13 @@ OUT = ROOT / "chiprun_out" / "chip_smoke.json"
 BASIS_APPLIES = 4 * 64 * 6 + 6 + 1  # Chebyshev: 4 chunks x 64, +1 RR, x6 iters, +1
 SMALL_TOL = 1e-5  # max |kernel - plain| / max |plain|: f32 sum order only
                   # (bf16 and x3 products are exact in f32 on both sides)
+BF16_OUT_TOL = 2.0 ** -7  # bf16 output: one rounding step where the two f32
+                          # sums straddle a rounding boundary
+EDGE_PANEL_RTOL = 5e-2  # of the largest gradient: the panel path rounds its
+                        # panel cotangents (and K3's factors) to bf16, the
+                        # edge path keeps f32; 1.7e-2 was measured
+K3_PER_GRADIENT = 12   # 2 terms (quad, Hutchinson) x 3 Neumann applies x nu = 2
+FWD_PER_GRADIENT = 150  # 24 Lanczos steps x 6 alone are 144
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # HBM bytes/s, f32 FLOP/s outside the tensor cores, bf16 tensor FLOP/s.
@@ -121,6 +143,63 @@ def compare(layout, panels, pv, label, timing=None):
     return rec
 
 
+class _Cut(Exception):
+    pass
+
+
+class _CutAt:
+    """A ``metrics=`` recorder that interrupts training at an epoch."""
+
+    def __init__(self, epoch):
+        self.epoch = epoch
+
+    def record(self, epoch, **values):
+        if epoch == self.epoch:
+            raise _Cut
+
+
+def compare_bwd(layout, g, pv, out_dtype, label, timing=None):
+    """Panel-cotangent kernel (both entry points) vs plain on the card."""
+    import torch
+
+    from manifold_gp_torch.ops import cuda_spmv
+
+    bc = layout.block_col.reshape(-1)
+    s = layout.max_blocks
+    tol = SMALL_TOL if out_dtype == torch.float32 else BF16_OUT_TOL
+    want = cuda_spmv.bwd_blocks_plain(bc, g, pv, s_max=s, out_dtype=out_dtype)
+    scale = float(want.abs().max())
+    rec = {"case": label, "batch": int(pv.shape[1]), "scale": scale,
+           "out_dtype": str(out_dtype).replace("torch.", "")}
+    for entry, call in (
+        ("bwd_blocks_call", lambda: cuda_spmv.bwd_blocks_call(bc, g, pv, s_max=s,
+                                                              out_dtype=out_dtype)),
+        ("block_bwd_blocks", lambda: cuda_spmv.block_bwd_blocks(layout, g, pv,
+                                                                out_dtype=out_dtype)),
+    ):
+        got = call()
+        torch.cuda.synchronize()
+        # compare in slices of row blocks: no second panel-sized f32 buffer
+        err, finite = 0.0, True
+        for lo in range(0, got.shape[0], 256):
+            d = got[lo:lo + 256].float() - want[lo:lo + 256].float()
+            err = max(err, float(d.abs().max()))
+            finite = finite and bool(torch.isfinite(d).all())
+        del got
+        rel = err / max(scale, 1e-30)
+        rec[entry] = {"max_abs_err": err, "max_rel_err": rel}
+        ok = finite and rel <= tol
+        print(f"  {label:<34} B={pv.shape[1]:<4} {entry:<21} max_rel_err={rel:.3e} "
+              f"(threshold {tol:.0e}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"kernel disagrees with its plain version: {label} {entry} rel={rel}")
+    del want
+    torch.cuda.empty_cache()
+    if timing is not None:
+        rec.update(timing(bc, g, pv, s, out_dtype))
+    return rec
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -129,15 +208,25 @@ def main():
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
-    if not (ROOT / "manifold_gp_torch" / "csrc" / "block_ell_spmv.cu").exists():
+    csrc = ROOT / "manifold_gp_torch" / "csrc"
+    if not ((csrc / "block_ell_spmv.cu").exists() and (csrc / "block_ell_bwd_blocks.cu").exists()):
         fail(f"the manifold_gp_torch package is not next to {__file__}")
     sys.path.insert(0, str(ROOT))
 
     from manifold_gp_torch.ops import cuda_spmv
     from manifold_gp_torch.ops.graph import build_graph
-    from manifold_gp_torch.ops.block_sparse import build_block_layout, permute_in
+    from manifold_gp_torch.ops.block_sparse import assemble, build_block_layout, permute_in
     from manifold_gp_torch.ops.laplacian import laplacian_coeffs
-    from examples_torch.run_large import serve_campaign, torus_points
+    from examples_torch.run_large import (
+        INITIAL_HYPERS,
+        build_campaign,
+        layout_record,
+        loss_and_grad,
+        rademacher_numpy,
+        serve_campaign,
+        torus_points,
+        train_campaign,
+    )
 
     report = {}
     # -- phase 1: device and build ------------------------------------------
@@ -157,7 +246,7 @@ def main():
     lib_path = cuda_spmv.build_library()
     cuda_spmv._load()
     build_s = time.perf_counter() - t0
-    print(f"kernel built in {build_s:.2f} s: {lib_path.relative_to(ROOT)}")
+    print(f"kernels built in {build_s:.2f} s: {lib_path.relative_to(ROOT)}")
     for line in cuda_spmv.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -181,13 +270,23 @@ def main():
             small.append(compare(small_layout, panels, permute_in(small_layout, v).contiguous(),
                                  f"small {dtype}"))
     report["small"] = small
+    small_bwd = []
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for batch in (1, 37, 128):
+            v = torch.randn((small_layout.num_nodes, batch), generator=gen, device=dev)
+            gct = torch.randn((small_layout.num_padded, batch), generator=gen, device=dev)
+            small_bwd.append(compare_bwd(small_layout, gct,
+                                         permute_in(small_layout, v).contiguous(), out_dtype,
+                                         f"small bwd {str(out_dtype)[6:]}"))
+    report["small_bwd"] = small_bwd
 
     # -- phase 3: the slice at 262,144 points ------------------------------
     print("== phase 3: serve the 262,144-point torus")
     torch.cuda.reset_peak_memory_stats(dev)
-    cuda_spmv.launch_count = 0
+    cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = 0
     result, params, model = serve_campaign(n=262_144, device=dev)
     launches = cuda_spmv.launch_count
+    serve_bwd_launches = cuda_spmv.bwd_launch_count  # serving takes no gradient
     result["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
     result["spmv_launches"] = launches
     print("  " + json.dumps(result))
@@ -249,6 +348,73 @@ def main():
         main.append(rec)
     report["main"] = main
 
+    print("== phase 4a: forward kernel at the training path's widths (bf16 panels)")
+    bf16_panels = assemble(layout, main_coeffs.diag, main_coeffs.triu, dtype=torch.bfloat16)
+    main_fwd_train = []
+    for batch in (1, 48):
+        v = torch.randn((layout.num_nodes, batch), generator=gen, device=dev)
+        rec = compare(layout, bf16_panels, permute_in(layout, v).contiguous(),
+                      "main bfloat16", timing=timing)
+        print(f"    ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+              f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']})")
+        main_fwd_train.append(rec)
+        del v
+    del bf16_panels
+    torch.cuda.empty_cache()
+    report["main_fwd_train"] = main_fwd_train
+
+    def timing_bwd(bc, g, pv, s, out_dtype):
+        nrb = layout.num_row_blocks
+        b = pv.shape[1]
+        flops = 2 * nrb * 128 * s * 128 * b
+        # every input read once (g, the operand, the ids), the output written once
+        nbytes = (nrb * 128 * s * 128 * (4 if out_dtype == torch.float32 else 2)
+                  + g.numel() * 4 + pv.numel() * 4 + bc.numel() * 4)
+        rate = f32_flops if out_dtype == torch.float32 else bf16_flops
+        t_bytes, t_ops = nbytes / hbm_bps * 1e3, flops / rate * 1e3
+
+        def kernel():
+            cuda_spmv.block_bwd_blocks(layout, g, pv, out_dtype=out_dtype)
+
+        def plain():
+            cuda_spmv.bwd_blocks_plain(bc, g, pv, s_max=s, out_dtype=out_dtype)
+
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, reps=3)
+        cb = pv.reshape(-1, 128, b).index_select(0, bc).reshape(nrb, s * 128, b)
+        cbt = cb.to(out_dtype).transpose(1, 2)
+        g3 = g.reshape(nrb, 128, b).to(out_dtype)
+        del cb
+        library_ms = time_ms(lambda: torch.bmm(g3, cbt))
+        del cbt, g3
+        torch.cuda.empty_cache()
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "flops": flops}
+
+    print("== phase 4b: panel-cotangent kernel vs plain at the training path's shapes")
+    main_bwd = []
+    for batch in (1, 48):
+        v = torch.randn((layout.num_nodes, batch), generator=gen, device=dev)
+        pvb = permute_in(layout, v).contiguous()
+        gct = torch.randn((layout.num_padded, batch), generator=gen, device=dev)
+        del v
+        # f32 is what the training path's edge-space backward asks for; bf16
+        # is the panel-space backward's type for bf16 panels
+        for out_dtype in (torch.float32, torch.bfloat16):
+            rec = compare_bwd(layout, gct, pvb, out_dtype,
+                              f"main bwd {str(out_dtype)[6:]}", timing=timing_bwd)
+            print(f"    ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                  f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+                  f"({rec['bound_by']})")
+            main_bwd.append(rec)
+    report["main_bwd"] = main_bwd
+    main_shape = [layout.num_row_blocks, layout.max_blocks]
+    del pv, pvb, gct, kernel, layout, main_coeffs, params
+    torch.cuda.empty_cache()
+
     # -- phase 5: 16,384 points against the JAX package's numbers ----------
     print("== phase 5: serve 16,384 points, held to the JAX pins")
     pins = json.loads((ROOT / "examples_torch" / "serve_pins.json").read_text())
@@ -266,8 +432,154 @@ def main():
             fail(f"16k {key}: port {r16[key]} != JAX {pins[key]}")
     report["serve_16k"] = {"result": r16, "checks": checks}
 
+    # -- phase 6: the training slice at 262,144 points ----------------------
+    print("== phase 6: train the 262,144-point torus")
+    cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = 0
+    tres, tparams, tmodel = train_campaign(n=262_144, epochs=3, device=dev)
+    train_fwd, train_bwd = cuda_spmv.launch_count, cuda_spmv.bwd_launch_count
+    tres["spmv_launches"], tres["bwd_blocks_launches"] = train_fwd, train_bwd
+    print("  " + json.dumps({k: v for k, v in tres.items() if k != "epoch_log"}))
+    for row in tres["epoch_log"]:
+        print(f"  epoch {row['epoch']}: loss {row['loss']:.6f} in {row['seconds']:.3f} s  "
+              f"noise {row['noise']:.5f} outputscale {row['outputscale']:.4f} "
+              f"lengthscale {row['lengthscale']:.4f} graphbandwidth {row['graphbandwidth']:.4f}")
+    for label, rec in tres["gradients"].items():
+        print(f"  gradient at {label} hyperparameters: {rec['seconds']:.3f} s, "
+              f"CG iterations {rec['cg_iters']}, forward launches {rec['spmv_launches']}, "
+              f"panel-cotangent launches {rec['bwd_blocks_launches']}, loss {rec['loss']:.6f}")
+        if rec["bwd_blocks_launches"] < K3_PER_GRADIENT:
+            fail(f"{rec['bwd_blocks_launches']} panel-cotangent launches in the gradient at "
+                 f"{label} hyperparameters (< {K3_PER_GRADIENT})")
+        if rec["spmv_launches"] < FWD_PER_GRADIENT:
+            fail(f"{rec['spmv_launches']} forward launches in the gradient at {label} "
+                 f"hyperparameters (< {FWD_PER_GRADIENT})")
+    print(f"  training: {tres['s_per_epoch']:.3f} s per epoch (median), launches forward "
+          f"{tres['train_launches']['spmv_launches']} / panel-cotangent "
+          f"{tres['train_launches']['bwd_blocks_launches']} over {tres['epochs']} epochs; "
+          f"peak memory {tres['peak_mem_bytes'] / 1e9:.3f} GB (edge-space cotangents)")
+    if not tres["finite"]:
+        fail("non-finite loss or gradient in the 262k training phase")
+    if tres["train_launches"]["bwd_blocks_launches"] < K3_PER_GRADIENT * tres["epochs"]:
+        fail("the panel-cotangent kernel launched fewer than 12 times per epoch")
+    if tres["train_launches"]["spmv_launches"] < FWD_PER_GRADIENT * tres["epochs"]:
+        fail("the forward kernel launched fewer than 150 times per epoch")
+    if not tres["history"][-1] < tres["history"][0]:
+        fail(f"the training loss did not fall: {tres['history']}")
+    # the same gradient with panel-space cotangents, for its peak memory
+    tmodel.kernel.cfg = tmodel.kernel.cfg.replace(solve_cotangent="panel")
+    del tparams
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    panel_loss, panel_grads = loss_and_grad(
+        tmodel, tmodel.init_params(**INITIAL_HYPERS),
+        generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    tres["panel_mode"] = {"loss": panel_loss, "grads": panel_grads,
+                          "seconds": time.perf_counter() - t0,
+                          "peak_mem_bytes": int(torch.cuda.max_memory_allocated(dev))}
+    print(f"  panel-space cotangents, one gradient at the initial hyperparameters: "
+          f"{tres['panel_mode']['seconds']:.3f} s, peak memory "
+          f"{tres['panel_mode']['peak_mem_bytes'] / 1e9:.3f} GB, loss {panel_loss:.6f}")
+    report["train_262k"] = tres
+    del tmodel
+    torch.cuda.empty_cache()
+
+    # -- phase 7: 16,384-point loss and gradients against the JAX pins -------
+    print("== phase 7: loss and gradients at 16,384 points, held to the JAX pins")
+    tpins = json.loads((ROOT / "examples_torch" / "train_pins.json").read_text())
+    raw_names = list(tpins["pins"]["initial"]["grads"])
+    parity = {}
+    by_mode = {}
+    for mode in ("edge", "panel"):
+        camp = build_campaign(
+            n=tpins["n"], device=dev, num_test=tpins["num_test"], k=tpins["k"],
+            seed=tpins["seed"], precond_type="jacobi", solve_cotangent=mode,
+            cg_tolerance=tpins["cg_tolerance"], cg_max_iter=tpins["cg_max_iter"])
+        rec = layout_record(camp, tpins["n"], tpins["k"], 100)
+        for key in ("num_edges", "max_blocks", "num_row_blocks"):
+            if rec[key] != tpins[key]:
+                fail(f"16k training {key}: port {rec[key]} != JAX {tpins[key]}")
+        probes = torch.from_numpy(rademacher_numpy(
+            tpins["probe_seed"], camp.model.num_data, tpins["num_probes"])).to(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        by_mode[mode] = {
+            label: loss_and_grad(camp.model, camp.model.init_params(**pin["hypers"]),
+                                 probes=probes)
+            for label, pin in tpins["pins"].items()
+        }
+        parity[f"peak_mem_bytes_{mode}"] = int(torch.cuda.max_memory_allocated(dev))
+        del camp, probes
+        torch.cuda.empty_cache()
+    for label, pin in tpins["pins"].items():
+        loss, grads = by_mode["edge"][label]
+        rel = abs(loss - pin["loss"]) / abs(pin["loss"])
+        gscale = max(abs(v) for v in pin["grads"].values())
+        gerr = max(abs(grads[k] - pin["grads"][k]) for k in raw_names) / gscale
+        ploss, pgrads = by_mode["panel"][label]
+        ep_loss = abs(loss - ploss) / abs(loss)
+        ep_grad = max(abs(grads[k] - pgrads[k]) for k in raw_names) / gscale
+        parity[label] = {"port": {"loss": loss, "grads": grads}, "jax": pin,
+                         "loss_rel": rel, "grad_rel_of_max": gerr,
+                         "panel": {"loss": ploss, "grads": pgrads},
+                         "edge_vs_panel_loss_rel": ep_loss,
+                         "edge_vs_panel_grad_rel_of_max": ep_grad}
+        print(f"  {label}: loss port {loss:.7f} jax {pin['loss']:.7f} rel {rel:.2e} "
+              f"(rtol {tpins['loss_rtol']}); gradients max diff / max |grad| {gerr:.2e} "
+              f"(rtol {tpins['grad_rtol']}); edge vs panel: loss {ep_loss:.2e}, "
+              f"gradients {ep_grad:.2e} (rtol {EDGE_PANEL_RTOL})")
+        if not all(v is not None and v == v for v in grads.values() if v is not None):
+            fail(f"16k {label}: non-finite gradient")
+        if not rel <= tpins["loss_rtol"]:
+            fail(f"16k {label} loss differs from the JAX pin by {rel:.2e}")
+        if not gerr <= tpins["grad_rtol"]:
+            fail(f"16k {label} gradients differ from the JAX pins by {gerr:.2e}")
+        if not (ep_loss <= 1e-5 and ep_grad <= EDGE_PANEL_RTOL):
+            fail(f"16k {label}: edge and panel cotangents disagree "
+                 f"(loss {ep_loss:.2e}, gradients {ep_grad:.2e})")
+    # checkpoint -> resume on the card: the generator states of a CUDA run
+    # travel through the .npz file (the CPU tests cannot reach that)
+    import tempfile
+
+    from manifold_gp_torch.utils import manifold_informed_train
+
+    camp = build_campaign(n=tpins["n"], device=dev, num_test=tpins["num_test"], k=tpins["k"],
+                          seed=tpins["seed"], precond_type="jacobi")
+    kw = dict(lr=1e-1, num_rand_vec=100, seed=5, update_norm=1)
+    _, _, straight = manifold_informed_train(
+        camp.model, camp.model.init_params(**INITIAL_HYPERS), max_iter=3, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = pathlib.Path(tmp) / "train.ckpt.npz"
+        try:  # the same run, cut off when epoch 2 reports: its checkpoint is of epoch 2
+            manifold_informed_train(camp.model, camp.model.init_params(**INITIAL_HYPERS),
+                                    max_iter=3, checkpoint_path=ckpt, checkpoint_every=2,
+                                    metrics=_CutAt(2), **kw)
+        except _Cut:
+            pass
+        else:
+            fail("the interrupted run was not interrupted")
+        _, _, resumed = manifold_informed_train(
+            camp.model, camp.model.init_params(**INITIAL_HYPERS), max_iter=3,
+            checkpoint_path=ckpt, checkpoint_every=100, **kw)
+    del camp
+    torch.cuda.empty_cache()
+    # same probes and indices from the restored generators; f32 atomics in
+    # the coefficient scatter-adds make runs differ in the last bits
+    resume_err = max(abs(a - b) / abs(a) for a, b in zip(straight[2:], resumed))
+    parity["resume"] = {"straight": straight, "resumed_tail": resumed, "max_rel": resume_err}
+    print(f"  checkpoint/resume at 16k: epochs 2-3 after a resume {resumed} vs uninterrupted "
+          f"{straight[2:]} (max rel {resume_err:.2e}, rtol 1e-4)")
+    if len(resumed) != 2 or not resume_err <= 1e-4:
+        fail(f"a resumed run does not reproduce the uninterrupted one: {resumed} vs {straight}")
+    print(f"  peak memory at 16k: edge {parity['peak_mem_bytes_edge'] / 1e9:.3f} GB, "
+          f"panel {parity['peak_mem_bytes_panel'] / 1e9:.3f} GB")
+    report["train_16k"] = parity
+
     # -- result --------------------------------------------------------------
     f32 = main[0]
+    bwd = next(r for r in main_bwd if r["batch"] == 48 and r["out_dtype"] == "float32")
+    if min(launches, train_fwd, train_bwd) <= 0:
+        fail("a kernel of a main path was never launched on it")
     kernels = [{
         "name": "block_ell_spmv",
         "route": "cuda",
@@ -275,6 +587,7 @@ def main():
         "replaces": "manifold_gp_tpu/ops/pallas_spmv.py:207",
         "also_replaces": "manifold_gp_tpu/ops/pallas_spmv.py:126",
         "launches": launches,
+        "launches_by_path": {"serve": launches, "train": train_fwd},
         "max_abs_err": f32["stream_matvec_call"]["max_abs_err"],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -282,7 +595,32 @@ def main():
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
         "panels": "float32",
-        "shape": [layout.num_row_blocks, layout.max_blocks, 125],
+        "shape": [*main_shape, 125],
+        "other_shapes": [
+            {"panels": "bfloat16", **{k: r[k] for k in ("batch", "ms", "plain_ms", "bound_ms",
+                                                        "bound_by", "library_ms")}}
+            for r in main_fwd_train
+        ],
+    }, {
+        "name": "block_ell_bwd_blocks",
+        "route": "cuda",
+        "source": "manifold_gp_torch/csrc/block_ell_bwd_blocks.cu",
+        "replaces": "manifold_gp_tpu/ops/pallas_spmv.py:317",
+        "launches": train_bwd,
+        "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd},
+        "max_abs_err": bwd["block_bwd_blocks"]["max_abs_err"],
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"],
+        "output": "float32",
+        "shape": [*main_shape, 48],
+        "other_shapes": [
+            {k: r[k] for k in ("batch", "out_dtype", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}
+            for r in main_bwd if r is not bwd
+        ],
     }]
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

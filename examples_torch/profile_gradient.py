@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""Where one training gradient of the campaign spends its time on the card.
+
+Builds the campaign (``run_large.build_campaign``, Jacobi preconditioner),
+takes one ``mll_loss`` gradient to warm up (kernel build, cuSOLVER handles),
+then traces a second one with ``torch.profiler`` and prints one JSON line:
+the wall time of the traced gradient, the summed device time of every kernel
+and memcpy, the device's busy and idle share of the wall time, and the
+largest kernels by device time with their launch counts.
+
+  python examples_torch/profile_gradient.py --n 262144              # initial hyperparameters
+  python examples_torch/profile_gradient.py --n 262144 --trained    # where CG runs long
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import sys
+import time
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+
+from examples_torch.run_large import (  # noqa: E402
+    CAMPAIGN_HYPERS,
+    INITIAL_HYPERS,
+    build_campaign,
+    loss_and_grad,
+)
+
+
+def profile_gradient(n: int, trained: bool, top: int = 12) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    camp = build_campaign(n=n, device="cuda", precond_type="jacobi")
+    model = camp.model
+    params = model.init_params(**(CAMPAIGN_HYPERS if trained else INITIAL_HYPERS))
+    generator = torch.Generator(device=model.device).manual_seed(1)
+    loss_and_grad(model, params, generator=generator)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, _ = loss_and_grad(model, params, generator=generator)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return {
+        "n": n,
+        "hyperparameters": "trained" if trained else "initial",
+        "device": torch.cuda.get_device_name(0),
+        "loss": loss,
+        "wall_ms": wall_ms,
+        "device_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "device_idle_share": 1.0 - device_ms / wall_ms,
+        "kernels": [{"name": k[:80], "device_ms": ms, "share_of_wall": ms / wall_ms,
+                     "launches": c} for k, ms, c in rows[:top]],
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=262_144)
+    ap.add_argument("--trained", action="store_true",
+                    help="the campaign's trained hyperparameters instead of the initial ones")
+    args = ap.parse_args()
+    print(json.dumps(profile_gradient(args.n, args.trained)))
+
+
+if __name__ == "__main__":
+    main()

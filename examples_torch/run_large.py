@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Serve the large-N IMGP campaign with the PyTorch port (prediction only).
+"""The large-N IMGP campaign with the PyTorch port: serve it, or train it.
 
-The port's counterpart of ``examples/run_large.py``'s campaign with the
-training left out: a torus sample in R^3 (262,144 points by default, 2,048
+The port's counterpart of ``examples/run_large.py``'s campaign, in two
+halves that share its set-up (``build_campaign``): a torus sample in R^3 (262,144 points by default, 2,048
 held out), labels y_true + 0.1 N(0,1) normalized by train statistics, an
 exact kNN graph (k = 16) built on the device, the unit-bandwidth rescale and
 bandwidth floor of the campaign, its InferenceConfig (block-ELL panels with
-``use_dia=False``, the Chebyshev-filtered basis above ``eigh_max_size``),
-then one basis solve and the evaluation tail: test RMSE/NLL on the noisy
-labels and the posterior mean's RMSE against the known truth.
+``use_dia=False``, bf16 panels, edge-space solve cotangents, the
+Chebyshev-filtered basis above ``eigh_max_size``).
 
-The hyperparameters are given (default: the trained values of the 262k
-torus campaign), not trained.
+``serve_campaign``: given hyperparameters (default: the trained values of
+the 262k torus campaign), one basis solve and the evaluation tail: test
+RMSE/NLL on the noisy labels and the posterior mean's RMSE against the
+known truth.
+
+``train_campaign``: precision-form MLL training (``manifold_informed_train``)
+from the campaign's initial hyperparameters, with the Jacobi preconditioner,
+then one loss-and-gradient at the trained hyperparameters.
 
 Usage:
-  python examples_torch/run_large.py                 # 262,144 points, CUDA
-  python examples_torch/run_large.py --n 8192 --cpu  # small run on the CPU
+  python examples_torch/run_large.py                 # serve 262,144 points, CUDA
+  python examples_torch/run_large.py --n 8192 --cpu  # small serve on the CPU
+  python examples_torch/run_large.py --train --n 262144 --epochs 3
+  python examples_torch/run_large.py --train --n 4096 --epochs 2 --cpu
 """
 
 from __future__ import annotations
@@ -86,23 +93,35 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def serve_campaign(n: int = 262_144, hypers: dict = CAMPAIGN_HYPERS,
-                   device="cuda", k: int = 16, num_test: int = 2048,
-                   num_modes: int = 100, seed: int = 0, nu: int = 2):
-    """Build, solve the basis once and score the held-out points.
+@dataclasses.dataclass
+class Campaign:
+    """The campaign's data, graph, model and set-up timings."""
 
-    Returns (result dict, params, model). The result holds the timings
-    (host clock around work that ends in a device synchronize), the layout
-    size, the SpMV kernel's launch count during the basis solve, and the
-    metrics."""
+    model: object
+    cfg: object
+    graph: object
+    train_y: np.ndarray
+    test_x: np.ndarray  # rescaled to unit bandwidth
+    test_y: np.ndarray
+    test_y_true: np.ndarray
+    noise_floor_rmse: float
+    gb_min: float
+    timings: dict
+
+
+def build_campaign(n: int = 262_144, device="cuda", k: int = 16, num_test: int = 2048,
+                   num_modes: int = 100, seed: int = 0, nu: int = 2,
+                   **cfg_overrides) -> Campaign:
+    """The campaign up to the model: torus sample, split, label
+    normalization, exact kNN graph on the device, unit-bandwidth rescale,
+    bandwidth floor, the campaign's InferenceConfig (with ``cfg_overrides``
+    replacing fields of it), kernel and model."""
     import torch
 
     from manifold_gp_torch import InferenceConfig, RiemannGP, RiemannMaternKernel
     from manifold_gp_torch.config import resolve_device
-    from manifold_gp_torch.ops import cuda_spmv
     from manifold_gp_torch.ops.graph import build_graph
     from manifold_gp_torch.parameters import GreaterThan
-    from manifold_gp_torch.utils import test_model
 
     device = resolve_device(device)
     timings = {}
@@ -138,7 +157,7 @@ def serve_campaign(n: int = 262_144, hypers: dict = CAMPAIGN_HYPERS,
         lanczos_max_iter=24, cg_tolerance=1e-2, cg_max_iter=200,
         precond_type="pivchol", spmv_dtype="bfloat16",
         solve_cotangent="edge", use_dia=False, eigensolver="chebyshev",
-    )
+    ).replace(**cfg_overrides)
     # The reference's data-driven bandwidth floor: every node's nearest edge
     # weight stays above 1e-4.
     n_tr = train_x.shape[0]
@@ -159,8 +178,44 @@ def serve_campaign(n: int = 262_144, hypers: dict = CAMPAIGN_HYPERS,
     )
     _sync(device)
     timings["layout_s"] = time.perf_counter() - t0
-    layout = kernel.block_layout
     model = RiemannGP(train_x_s, train_y, kernel, cfg=cfg)
+    return Campaign(model=model, cfg=cfg, graph=graph, train_y=train_y, test_x=test_x_s,
+                    test_y=test_y, test_y_true=test_y_true,
+                    noise_floor_rmse=float(0.1 / std_y), gb_min=gb_min, timings=timings)
+
+
+def layout_record(camp: Campaign, n: int, k: int, num_modes: int) -> dict:
+    """Sizes of the campaign's graph and block-ELL layout."""
+    layout = camp.model.kernel.block_layout
+    return {
+        "n": n,
+        "k": k,
+        "num_modes": num_modes,
+        "device": str(camp.model.device),
+        "num_edges": int(camp.graph.num_edges),
+        "max_blocks": int(layout.max_blocks),
+        "num_row_blocks": int(layout.num_row_blocks),
+        "panel_bytes_f32": int(layout.panel_elems * 4),
+        "graphbandwidth_floor": camp.gb_min,
+    }
+
+
+def serve_campaign(n: int = 262_144, hypers: dict = CAMPAIGN_HYPERS,
+                   device="cuda", k: int = 16, num_test: int = 2048,
+                   num_modes: int = 100, seed: int = 0, nu: int = 2):
+    """Build, solve the basis once and score the held-out points.
+
+    Returns (result dict, params, model). The result holds the timings
+    (host clock around work that ends in a device synchronize), the layout
+    size, the SpMV kernel's launch count during the basis solve, and the
+    metrics."""
+    from manifold_gp_torch.ops import cuda_spmv
+    from manifold_gp_torch.utils import test_model
+
+    camp = build_campaign(n=n, device=device, k=k, num_test=num_test,
+                          num_modes=num_modes, seed=seed, nu=nu)
+    model, timings = camp.model, camp.timings
+    kernel, device = model.kernel, model.device
     params = model.init_params(
         noise=hypers["noise"], outputscale=hypers["outputscale"],
         graphbandwidth=hypers["graphbandwidth"], lengthscale=hypers["lengthscale"],
@@ -177,30 +232,159 @@ def serve_campaign(n: int = 262_144, hypers: dict = CAMPAIGN_HYPERS,
     kernel.eval_basis = lambda p: basis
 
     t0 = time.perf_counter()
-    rmse, nll = test_model(model, params, test_x_s, test_y, noisy_test=True)
+    rmse, nll = test_model(model, params, camp.test_x, camp.test_y, noisy_test=True)
     _sync(device)
     timings["eval_s"] = time.perf_counter() - t0
-    post = model.posterior(params, test_x_s, noisy_posterior=False)
+    post = model.posterior(params, camp.test_x, noisy_posterior=False)
     mean = post.mean.cpu().numpy()
-    rmse_true = float(np.sqrt(np.mean((mean - test_y_true) ** 2)))
+    rmse_true = float(np.sqrt(np.mean((mean - camp.test_y_true) ** 2)))
     eigval = basis[0].cpu().numpy()
     result = {
-        "n": n,
-        "k": k,
-        "num_modes": num_modes,
-        "device": str(device),
-        "num_edges": int(graph.num_edges),
-        "max_blocks": int(layout.max_blocks),
-        "num_row_blocks": int(layout.num_row_blocks),
-        "panel_bytes_f32": int(layout.panel_elems * 4),
+        **layout_record(camp, n, k, num_modes),
         "basis_spmv_launches": int(basis_launches),
-        "graphbandwidth_floor": gb_min,
         "rmse_vs_truth": rmse_true,
         "rmse_noisy_test": rmse,
         "nll_noisy_test": nll,
-        "noise_floor_rmse": float(0.1 / std_y),
+        "noise_floor_rmse": camp.noise_floor_rmse,
         "eigval_head": [float(v) for v in eigval[:10]],
         "finite": bool(np.isfinite(mean).all() and np.isfinite(eigval).all()),
+        **timings,
+    }
+    return result, params, model
+
+
+INITIAL_HYPERS = {"noise": 1e-2, "outputscale": 1.0, "graphbandwidth": 1.0,
+                  "lengthscale": 1.0}
+
+
+def rademacher_numpy(seed: int, n: int, num_probes: int) -> np.ndarray:
+    """SLQ probes from a numpy seed, +-1 float32 [n, num_probes]: the draw
+    the pinned JAX numbers of ``train_pins.json`` were computed with."""
+    bits = np.random.default_rng(seed).integers(0, 2, (n, num_probes))
+    return (2 * bits - 1).astype(np.float32)
+
+
+class EpochLog:
+    """``metrics=`` recorder of ``manifold_informed_train``: keeps every
+    epoch's values, with the host seconds since the previous record (each
+    record follows a device synchronize: the loss is read on the host)."""
+
+    def __init__(self):
+        self.rows = []
+        self._t = time.perf_counter()
+
+    def record(self, epoch, **values):
+        now = time.perf_counter()
+        self.rows.append({"epoch": epoch, "seconds": now - self._t, **values})
+        self._t = now
+
+
+def loss_and_grad(model, params, generator=None, probes=None):
+    """One ``mll_loss`` value and its gradients w.r.t. every raw parameter
+    (None where the loss does not reach one): (float, {name: float})."""
+    import torch
+
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    loss = model.mll_loss(leaves, generator=generator, probes=probes)
+    names = list(leaves)
+    grads = torch.autograd.grad(loss, [leaves[k] for k in names], allow_unused=True)
+    return float(loss.detach()), {
+        k: None if g is None else float(g) for k, g in zip(names, grads)
+    }
+
+
+def cg_iterations(model, params, rhs) -> int:
+    """CG iterations of one solve with the composed noisy precision at the
+    campaign's tolerance, preconditioned as training's solves are."""
+    import torch
+
+    from manifold_gp_torch.ops.cg import cg_raw
+
+    with torch.no_grad():
+        mv = model.precision_matvec(params)
+        _, iters = cg_raw(mv, rhs, tol=model.cfg.cg_tolerance, max_iter=model.cfg.cg_max_iter,
+                          precond=model.precision_precond(params), with_info=True)
+    return iters
+
+
+def train_campaign(n: int = 262_144, epochs: int = 3, device="cuda", k: int = 16,
+                   num_test: int = 2048, num_modes: int = 100, seed: int = 0,
+                   nu: int = 2, lr: float = 1e-1, trained_hypers: dict = CAMPAIGN_HYPERS,
+                   verbose: bool = False):
+    """Train the campaign's hyperparameters for ``epochs`` epochs from its
+    initial values, then take one loss-and-gradient at ``trained_hypers``
+    (where CG runs long).
+
+    The campaign's configuration with the package's default preconditioner
+    (``precond_type="jacobi"``; the pivoted-Cholesky one is not ported).
+    Returns (result dict, params, model): per-epoch loss, hyperparameters
+    and seconds, CG iteration counts, the launch counts of both SpMV
+    kernels per phase, and peak device memory."""
+    import torch
+
+    from manifold_gp_torch.ops import cuda_spmv
+    from manifold_gp_torch.utils import manifold_informed_train
+
+    camp = build_campaign(n=n, device=device, k=k, num_test=num_test,
+                          num_modes=num_modes, seed=seed, nu=nu, precond_type="jacobi")
+    model, timings = camp.model, camp.timings
+    device = model.device
+    on_card = device.type == "cuda"
+    y = model.train_y
+
+    def counts():
+        return cuda_spmv.launch_count, cuda_spmv.bwd_launch_count
+
+    def since(before):
+        now = counts()
+        return {"spmv_launches": now[0] - before[0], "bwd_blocks_launches": now[1] - before[1]}
+
+    params = model.init_params(**INITIAL_HYPERS)
+    timings["cg_iters_initial"] = cg_iterations(model, params, y)
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    log = EpochLog()
+    before = counts()
+    t0 = time.perf_counter()
+    params, loss, history = manifold_informed_train(
+        model, params, lr=lr, weight_decay=0.0, max_iter=epochs - 1, tolerance=1e-2,
+        num_rand_vec=100, verbose=verbose, seed=seed, metrics=log,
+    )
+    _sync(device)
+    timings["train_s"] = time.perf_counter() - t0
+    train_counts = since(before)
+    timings["s_per_epoch"] = float(np.median([r["seconds"] for r in log.rows]))
+    timings["cg_iters_after_training"] = cg_iterations(model, params, y)
+
+    # one gradient at the initial and one at the trained hyperparameters,
+    # each with its own launch counts and time
+    generator = torch.Generator(device=device).manual_seed(seed + 1)
+    gradients = {}
+    for label, hypers in (("initial", INITIAL_HYPERS), ("trained", trained_hypers)):
+        p = model.init_params(**hypers)
+        before = counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        value, grads = loss_and_grad(model, p, generator=generator)
+        _sync(device)
+        gradients[label] = {"loss": value, "grads": grads,
+                            "seconds": time.perf_counter() - t0, **since(before),
+                            "cg_iters": cg_iterations(model, p, y)}
+
+    values = [v for g in gradients.values() for v in (g["loss"], *g["grads"].values())
+              if v is not None]
+    result = {
+        **layout_record(camp, n, k, num_modes),
+        "epochs": epochs,
+        "precond_type": camp.cfg.precond_type,
+        "history": history,
+        "final_loss": loss,
+        "epoch_log": log.rows,
+        "train_launches": train_counts,
+        "gradients": gradients,
+        "peak_mem_bytes": int(torch.cuda.max_memory_allocated(device)) if on_card else None,
+        "finite": bool(np.isfinite(history).all() and np.isfinite(values).all()),
         **timings,
     }
     return result, params, model
@@ -213,11 +397,22 @@ def main():
     ap.add_argument("--num-modes", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    ap.add_argument("--train", action="store_true",
+                    help="train the hyperparameters instead of serving given ones")
+    ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args()
-    result, _, _ = serve_campaign(
-        n=args.n, device="cpu" if args.cpu else "cuda", num_test=args.num_test,
-        num_modes=args.num_modes, seed=args.seed,
-    )
+    device = "cpu" if args.cpu else "cuda"
+    if args.train:
+        result, _, _ = train_campaign(
+            n=args.n, epochs=args.epochs, device=device, num_test=args.num_test,
+            num_modes=args.num_modes, seed=args.seed, verbose=args.verbose,
+        )
+    else:
+        result, _, _ = serve_campaign(
+            n=args.n, device=device, num_test=args.num_test,
+            num_modes=args.num_modes, seed=args.seed,
+        )
     print(json.dumps(result))
 
 

@@ -20,6 +20,7 @@ from .config import DEFAULT_CONFIG, InferenceConfig, resolve_device  # noqa: E40
 from .kernels import RiemannKernel, RiemannMaternKernel  # noqa: E402
 from .models import Posterior, RiemannGP  # noqa: E402
 from .parameters import GreaterThan, Interval, Positive  # noqa: E402
+from .priors import GammaPrior, InverseGammaPrior, NormalPrior  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -34,4 +35,7 @@ __all__ = [
     "GreaterThan",
     "Interval",
     "Positive",
+    "GammaPrior",
+    "InverseGammaPrior",
+    "NormalPrior",
 ]

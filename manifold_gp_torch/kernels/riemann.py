@@ -1,5 +1,5 @@
 """Riemann (graph-spectral) kernels (port of ``manifold_gp_tpu.kernels.riemann``,
-single device, prediction side).
+single device).
 
 The kernel holds the data, the kNN graph, the block-ELL layout and the
 normalization flags; learnable state is the flat params dict
@@ -8,11 +8,10 @@ spectral basis: dense ``torch.linalg.eigh`` at or below ``eigh_max_size``,
 Chebyshev-filtered subspace iteration above it, every Laplacian apply of
 which goes through the block-ELL SpMV (the CUDA kernel on a card). Then the
 reference's post-processing: eigval[0] = 0, D^{-1/2} recovery, column L2
-normalization.
+normalization. ``precision_matvec`` / ``precision_diag`` are the Matérn
+precision operator that training solves with and its Jacobi diagonal.
 
-Not ported yet: the mesh path, the LOBPCG and host-f64 basis solvers, and
-the precision operator used by training (``precision_matvec``,
-``precision_diag``).
+Not ported yet: the mesh path and the LOBPCG and host-f64 basis solvers.
 """
 
 from __future__ import annotations
@@ -72,6 +71,7 @@ class RiemannKernel:
         num_modes: int = 100,
         bump_scale: float = 1.0,
         bump_decay: float = 0.01,
+        graphbandwidth_prior=None,
         graphbandwidth_constraint=None,
         cfg: InferenceConfig = DEFAULT_CONFIG,
         graph=None,
@@ -102,6 +102,7 @@ class RiemannKernel:
         self.num_modes = int(num_modes)
         self.bump_scale = float(bump_scale)
         self.bump_decay = float(bump_decay)
+        self.graphbandwidth_prior = graphbandwidth_prior
         self.cfg = cfg
         self._param_decls = [
             ConstrainedParam(
@@ -137,6 +138,15 @@ class RiemannKernel:
 
     def lengthscale(self, params):
         return self._decl("lengthscale").value(params)
+
+    def priors(self):
+        """(name, prior, value_fn) triples for the training loss."""
+        out = []
+        if self.graphbandwidth_prior is not None:
+            out.append(
+                ("graphbandwidth_prior", self.graphbandwidth_prior, self.graphbandwidth)
+            )
+        return out
 
     # -- Laplacian ---------------------------------------------------------
     def coeffs(self, params, self_loops: bool = True):
@@ -263,3 +273,37 @@ class RiemannMaternKernel(RiemannKernel):
     def spectral_density(self, params, eigval):
         ls2 = torch.square(self.lengthscale(params).reshape(()))
         return torch.pow(2.0 * self.nu / ls2 + eigval, -float(self.nu))
+
+    def precision_diag(self, params, coeffs=None):
+        """(Approximate) diag(Q) for Jacobi PCG (ops.matern.matern_precision_diag)."""
+        from ..ops.matern import matern_precision_diag
+
+        c = self.coeffs(params) if coeffs is None else coeffs
+        return matern_precision_diag(
+            self.graph, c, self.nu, self.lengthscale(params),
+            self.laplacian_normalization,
+        )
+
+    def precision_matvec(self, params, coeffs=None, permuted_io: bool = False):
+        """The operator Q = (2 nu / l^2 I + L)^nu (an ``ops.operator.Operator``).
+
+        With ``permuted_io=True`` (block path only) it works on
+        padded-RCM-space vectors so compositions/solves built on top do no
+        per-matvec permutation gathers."""
+        from ..ops.matern import make_matern_precision_matvec
+
+        c = self.coeffs(params) if coeffs is None else coeffs
+        # The fused block path assembles *shifted* panels itself: pass the
+        # layout plus the panel type, not an unshifted panel buffer.
+        dense, block = None, None
+        if self.use_dense_operator:
+            dense = laplacian_dense(self.graph, c)
+        elif self.block_layout is not None:
+            block = (self.block_layout, _panel_dtype_of(self.cfg))
+        if block is None:
+            permuted_io = False
+        return make_matern_precision_matvec(
+            self.graph, c, self.nu, self.lengthscale(params),
+            self.laplacian_normalization, dense=dense, block=block,
+            permuted_io=permuted_io, grad_space=self.cfg.solve_cotangent,
+        )

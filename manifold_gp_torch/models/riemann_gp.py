@@ -1,5 +1,13 @@
-"""Implicit-manifold GP regression model, prediction side (port of
+"""Implicit-manifold GP regression model (port of
 ``manifold_gp_tpu.models.riemann_gp``, supervised).
+
+Training: ``precision_matvec`` composes Scale -> Noise over the kernel's
+Matérn precision (including the ``inverse_scale`` asymmetry documented in
+``ops.matern``), ``mll_loss`` is the precision-form negative log marginal
+likelihood. Every method is a function of a flat params dict of tensors;
+gradients come from autograd with the solver backwards of ``ops.cg`` /
+``ops.slq``. Randomness (SLQ probes, one-hot indices) is passed in or drawn
+from an explicit ``torch.Generator``.
 
 Prediction uses the exact feature-space (Woodbury) posterior: with
 K = s Z Z' + sigma^2 I and C = (sigma^2/s) I_m + Z'Z,
@@ -8,19 +16,28 @@ K = s Z Z' + sigma^2 I and C = (sigma^2/s) I_m + Z'Z,
 — only m x m dense work (m = num_modes).
 
 Not ported yet: the semisupervised ``labeled`` mask, LOVE variances, the
-blend with a vanilla GP (``base_model``) and the training-side precision
-operator and loss.
+blend with a vanilla GP (``base_model``), the pivoted-Cholesky / deflation
+preconditioners and the preconditioned (mBCG) quadrature.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 
 from ..config import DEFAULT_CONFIG, InferenceConfig
+from ..ops import engine
 from ..ops.bump import bump_function
+from ..ops.matern import (
+    make_jacobi_precond,
+    make_noisy_matvec,
+    make_scaled_matvec,
+    noisy_scaled_diag,
+)
+from ..ops.operator import Operator
 from ..parameters import ConstrainedParam, GreaterThan, Positive
 
 
@@ -94,6 +111,133 @@ class RiemannGP:
             torch.as_tensor(value, dtype=torch.float32, device=self.device)
         )
         return out
+
+    @property
+    def num_data(self) -> int:
+        return int(self.train_y.shape[0])
+
+    # -- precision operator stack -----------------------------------------
+    def precision_matvec(self, params, noise: bool = True, coeffs=None) -> Operator:
+        """Compose Scale -> Noise over the kernel's precision.
+
+        On the block-sparse path the whole composition runs in padded-RCM
+        space: the scalar Scale/Noise wrappers commute with the permutation,
+        so one permute_in/out pair at the boundary replaces per-Laplacian-
+        matvec row gathers (a noisy nu=2 apply does 6 of them)."""
+        permuted = self.kernel.block_layout is not None
+        mv = self.kernel.precision_matvec(params, coeffs=coeffs, permuted_io=permuted)
+        if self.use_outputscale:
+            mv = make_scaled_matvec(mv, self.outputscale(params))
+        if noise:
+            mv = make_noisy_matvec(mv, self.noise(params))
+        if permuted:
+            from ..ops.sparse_formats import permute_in, permute_out
+
+            layout = self.kernel.block_layout
+            inner = mv.fn
+
+            def fn(v, *consts):
+                squeeze = v.dim() == 1
+                vv = v[:, None] if squeeze else v
+                out = permute_out(layout, inner(permute_in(layout, vv), *consts))
+                return out[:, 0] if squeeze else out
+
+            mv = Operator(fn, mv.consts)
+        return mv
+
+    def precision_precond_obj(self, params, noise: bool = True, coeffs=None, matvec=None):
+        """Preconditioner OBJECT (``apply``) for the composed precision
+        operator, per cfg.precond_type: "jacobi" is diag(Q) pushed through
+        the Scale/Noise wrappers. None when cfg.cg_precondition is off or
+        precond_type == "none". Detached: a preconditioner never changes
+        solutions, so no gradient flows through it."""
+        cfg = self.cfg
+        if not cfg.cg_precondition or cfg.precond_type == "none":
+            return None
+        if cfg.precond_type != "jacobi":
+            raise NotImplementedError(
+                f"precond_type={cfg.precond_type!r} is not ported yet (ROADMAP queue 1, "
+                "'Preconditioners and the mBCG log-det'); use 'jacobi' or 'none'"
+            )
+        from ..ops.pivchol import DiagPrecond
+
+        with torch.no_grad():
+            d = noisy_scaled_diag(
+                self.kernel.precision_diag(params, coeffs=coeffs),
+                scale=self.outputscale(params) if self.use_outputscale else None,
+                noise=self.noise(params) if noise else None,
+            )
+        return DiagPrecond(d=d)
+
+    def precision_precond(self, params, noise: bool = True, coeffs=None, matvec=None):
+        """M^{-1} apply-closure view of ``precision_precond_obj`` (the CG
+        hook). None when preconditioning is off."""
+        obj = self.precision_precond_obj(params, noise=noise, coeffs=coeffs, matvec=matvec)
+        return None if obj is None else obj.apply
+
+    def build_precond(self, params):
+        """Freshly built config-selected preconditioner OBJECT for the
+        composed noisy precision — the cacheable unit for ``precond_refresh``
+        training: rebuilding it every k epochs instead of every loss
+        evaluation changes only iteration counts, never gradients."""
+        return self.precision_precond_obj(params, noise=True)
+
+    # -- training loss -----------------------------------------------------
+    def mll_loss(self, params, generator: Optional[torch.Generator] = None,
+                 precond_override=None, probes: Optional[torch.Tensor] = None):
+        """Precision-form negative log marginal likelihood:
+            0.5 [ y' Q y - logdet Q + n log 2pi ] - sum log p(priors), all / n.
+        Exact (dense Cholesky) when n <= cfg.max_cholesky, else SLQ with
+        ``probes`` ([n, cfg.num_probes] Rademacher) or probes drawn from
+        ``generator``, with preconditioned gradient solves when
+        cfg.cg_precondition.
+
+        ``precond_override``: a preconditioner object (``apply``) to use in
+        place of the config-selected one.
+        """
+        n = self.num_data
+        y = self.train_y
+        cfg = self.cfg
+        if cfg.slq_precond_quadrature and cfg.cg_precondition and n > cfg.max_cholesky:
+            raise NotImplementedError(
+                "slq_precond_quadrature: the preconditioned (mBCG) quadrature is not "
+                "ported yet (ROADMAP queue 1, 'Preconditioners and the mBCG log-det')"
+            )
+        # One coefficient computation shared by the operator and the
+        # preconditioner.
+        c = self.kernel.coeffs(params)
+        mv = self.precision_matvec(params, noise=True, coeffs=c)
+        quad = torch.dot(y, mv(y[:, None])[:, 0])
+        pobj = (
+            precond_override
+            if precond_override is not None
+            else self.precision_precond_obj(params, noise=True, coeffs=c, matvec=mv)
+        )
+        ld = engine.logdet(
+            mv, n, cfg, generator=generator, probes=probes, device=self.device,
+            precond=None if pobj is None else pobj.apply,
+        )
+        loss = 0.5 * (quad - ld + n * math.log(2.0 * math.pi))
+        for _, prior, value_fn in self.kernel.priors():
+            loss = loss - torch.sum(prior.log_prob(value_fn(params)))
+        return loss / n
+
+    def average_variance(self, params, num_rand_vec: int = 100,
+                         generator: Optional[torch.Generator] = None, idx=None):
+        """Mean diagonal of the *unscaled* kernel-precision inverse, over all
+        nodes when num_rand_vec >= N, else over ``num_rand_vec`` nodes
+        (``idx``, or drawn from ``generator``)."""
+        mv = self.kernel.precision_matvec(params)
+        nn = self.kernel.graph.num_nodes
+        precond = (
+            make_jacobi_precond(self.kernel.precision_diag(params))
+            if self.cfg.cg_precondition
+            else None
+        )
+        return engine.average_variance(
+            mv, nn, num_rand_vec, self.cfg, generator=generator, precond=precond,
+            idx=idx, device=self.device,
+        )
 
     # -- prediction --------------------------------------------------------
     @torch.no_grad()

@@ -1,0 +1,306 @@
+"""Operator compositions: Matérn precision, scale / noise wrappers (port of
+``manifold_gp_tpu.ops.matern``).
+
+  * Matérn precision Q = (2 nu / l^2 I + L)^nu, applied as nu repetitions of
+    ``out <- (out + (l^2/2nu) L out) / (l^2/2nu)``; for randomwalk
+    normalization the output is post-multiplied by the degree to symmetrize.
+    On the block-ELL path the recursion telescopes to
+    Q = D^{1/2} (2nu/l^2 I + L_sym)^nu D^{1/2}: nu bare block matvecs with the
+    shift folded into the panel diagonal.
+  * Scale wrapper: multiplies (or divides, ``inverse_scale``) the matvec by a
+    scalar. NOTE the training path wraps the precision with
+    ``inverse_scale=False``, so "outputscale" multiplies the *precision*
+    during training; the average-variance normalization protocol of
+    ``utils.train`` compensates. That asymmetry is preserved exactly.
+  * Noise wrapper: truncated Neumann series
+    (K + s^2 I)^{-1} ~= Q - s^2 Q^2 + s^4 Q^3, evaluated as nested matvecs
+    Q(v - s^2 Q(v - s^2 Q v)).
+
+Each factory here returns an ``ops.operator.Operator``: the matvec [n, B] ->
+[n, B] together with the tensors it depends on, which the solvers of
+``ops.cg`` and ``ops.slq`` need to return their gradients.
+
+Not ported yet: the semisupervised Schur complement (``make_schur_matvec``,
+``make_schur_matvec_masked``, ``labeled_split``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .block_sparse import BlockLayout
+from .graph import SparseGraph
+from .laplacian import LaplacianCoeffs, laplacian_matvec
+from .operator import Operator, as_operator
+
+_NORMALIZATIONS = ("randomwalk", "symmetric")
+
+
+def _check_normalization(normalization: str):
+    if normalization not in _NORMALIZATIONS:
+        raise ValueError(
+            "normalization must be 'randomwalk' or 'symmetric', got "
+            f"{normalization!r}"
+        )
+
+
+def _panel_dtype_of(blocks):
+    """``block[1]`` -> assemble() dtype: None (f32 panels), a dtype or the
+    "float32x3" tag, or a panel buffer whose type is reused."""
+    if blocks is None or not isinstance(blocks, torch.Tensor):
+        return blocks
+    return "float32x3" if blocks.dim() == 4 else blocks.dtype
+
+
+def _shift(nu: int, lengthscale):
+    return 2.0 * nu / torch.square(lengthscale.reshape(()))
+
+
+def make_matern_precision_matvec(
+    graph: SparseGraph,
+    coeffs: LaplacianCoeffs,
+    nu: int,
+    lengthscale,
+    normalization: str = "randomwalk",
+    dense: Optional[torch.Tensor] = None,
+    block=None,
+    permuted_io: bool = False,
+    grad_space: str = "panel",
+) -> Operator:
+    """Q = (2 nu / l^2 I + L)^nu (with randomwalk symmetrization).
+
+    ``permuted_io`` (block path): the operator maps padded-RCM-space vectors
+    [Np, B] -> [Np, B]; callers hoist the permutation to the solve boundary.
+
+    ``grad_space`` (block-ELL path): "panel" (default) or "edge" — see
+    ``InferenceConfig.solve_cotangent``. Edge mode bounds the solve VJPs'
+    backward memory at one transient panel buffer by contracting each
+    cotangent to the [M]+[N] coefficient vectors at once
+    (``ops.cuda_spmv.make_matvec_edge_ad``).
+    """
+    lengthscale = torch.as_tensor(lengthscale, dtype=torch.float32, device=coeffs.deg.device)
+
+    if block is not None and grad_space == "edge":
+        from .cuda_spmv import make_matvec_edge_ad
+        from .sparse_formats import assemble, permute_in, permute_out
+
+        layout, blocks = block
+        if not isinstance(layout, BlockLayout):
+            raise ValueError(
+                "solve_cotangent='edge' requires the block-ELL layout "
+                "(DIA bands assemble per-diagonal, not per-panel)"
+            )
+        _check_normalization(normalization)
+        diag_s = coeffs.diag + _shift(nu, lengthscale)
+        # Assembled ONCE per coefficient set, outside the autograd graph:
+        # every solve's panel cotangent is dead (the edge-space backward
+        # carries the gradient).
+        with torch.no_grad():
+            qblocks = assemble(layout, diag_s, coeffs.triu, dtype=_panel_dtype_of(blocks))
+        mv_edge = make_matvec_edge_ad(layout)
+        dsq_p = torch.sqrt(coeffs.deg[layout.perm])
+
+        def matvec(v, qblocks, diag_s, triu, dsq_p):
+            squeeze = v.dim() == 1
+            out = v[:, None] if squeeze else v
+            if not permuted_io:
+                out = permute_in(layout, out)
+            if normalization == "randomwalk":
+                out = out * dsq_p[:, None]
+            for _ in range(nu):
+                out = mv_edge(qblocks, diag_s, triu, out)
+            if normalization == "randomwalk":
+                out = out * dsq_p[:, None]
+            if not permuted_io:
+                out = permute_out(layout, out)
+            return out[:, 0] if squeeze else out
+
+        return Operator(matvec, (qblocks, diag_s, coeffs.triu, dsq_p))
+
+    if block is not None:
+        # Fused block path: the telescoped form (matern_precision_operands /
+        # make_matern_precision_matvec_operand below) plus the permutation
+        # boundary.
+        from .sparse_formats import permute_in, permute_out
+
+        layout, blocks = block
+        qblocks, dsq_p = matern_precision_operands(
+            layout, coeffs, nu, lengthscale, dtype=_panel_dtype_of(blocks)
+        )
+        inner = make_matern_precision_matvec_operand(layout, nu, normalization)
+
+        def matvec(v, qblocks, dsq_p):
+            squeeze = v.dim() == 1
+            out = v[:, None] if squeeze else v
+            if not permuted_io:
+                out = permute_in(layout, out)
+            out = inner(qblocks, dsq_p, out)
+            if not permuted_io:
+                out = permute_out(layout, out)
+            return out[:, 0] if squeeze else out
+
+        return Operator(matvec, (qblocks, dsq_p))
+
+    # Dense / ELL recursion. ``lap`` is the dense L_sym, or (diag, triu) of
+    # the ELL gather loop.
+    lap = (dense,) if dense is not None else (coeffs.diag, coeffs.triu)
+
+    def matvec(v, lengthscale, deg, *lap):
+        a = torch.square(lengthscale.reshape(())) / (2.0 * nu)
+        c = coeffs._replace(deg=deg)
+        dense_l = None
+        if len(lap) == 1:
+            dense_l = lap[0]
+        else:
+            c = c._replace(diag=lap[0], triu=lap[1])
+        out = v
+        for _ in range(nu):
+            lv = laplacian_matvec(graph, c, out, normalization, dense=dense_l)
+            out = (out + a * lv) / a
+        if normalization == "randomwalk":
+            out = out * (deg if out.dim() == 1 else deg[:, None])
+        return out
+
+    return Operator(matvec, (lengthscale, coeffs.deg, *lap))
+
+
+def matern_precision_operands(layout, coeffs, nu: int, lengthscale, dtype=None):
+    """Assemble the per-coeffs operands of the fused Matérn matvec: the
+    shift-folded panel buffer and the permuted sqrt-degree vector, so that
+    callers with fixed hyperparameters can assemble once and pass both to
+    ``make_matern_precision_matvec_operand``'s matvec."""
+    from .sparse_formats import assemble
+
+    lengthscale = torch.as_tensor(lengthscale, dtype=torch.float32, device=coeffs.deg.device)
+    qblocks = assemble(layout, coeffs.diag + _shift(nu, lengthscale), coeffs.triu, dtype=dtype)
+    dsq_p = torch.sqrt(coeffs.deg[layout.perm])
+    return qblocks, dsq_p
+
+
+def make_matern_precision_matvec_operand(layout, nu: int, normalization: str = "randomwalk"):
+    """Operand-explicit fused Matérn matvec: ``matvec(qblocks, dsq_p, pv)``
+    over permuted padded-RCM vectors, with operands from
+    :func:`matern_precision_operands`; differentiable in all three
+    (``ops.cuda_spmv.make_matvec_ad``)."""
+    _check_normalization(normalization)
+    from .sparse_formats import make_matvec_ad
+
+    mv_fn = make_matvec_ad(layout)
+
+    def matvec(qblocks, dsq_p, v):
+        squeeze = v.dim() == 1
+        out = v[:, None] if squeeze else v
+        if normalization == "randomwalk":
+            out = out * dsq_p[:, None]
+        for _ in range(nu):
+            out = mv_fn(qblocks, out)
+        if normalization == "randomwalk":
+            out = out * dsq_p[:, None]
+        return out[:, 0] if squeeze else out
+
+    return matvec
+
+
+def matern_precision_diag(
+    graph: SparseGraph,
+    coeffs: LaplacianCoeffs,
+    nu: int,
+    lengthscale,
+    normalization: str = "randomwalk",
+) -> torch.Tensor:
+    """(Approximate) diagonal of Q = (2 nu/l^2 I + L)^nu for Jacobi PCG.
+
+    With A = shift*I + L_sym the diagonals are
+      nu=1: diag(A)            (exact)
+      nu=2: diag(A^2) = diag(A)^2 + rowsum(offdiag^2)   (exact)
+      nu>2: diag(A^2)^{nu/2}   (positive surrogate; a preconditioner only
+            needs a spectrally-reasonable SPD scaling, not exactness)
+    and the randomwalk symmetrization multiplies by the degree
+    (Q_rw = D^{1/2} A^nu D^{1/2} has diag = deg * diag(A^nu)).
+    """
+    lengthscale = torch.as_tensor(lengthscale, dtype=torch.float32, device=coeffs.deg.device)
+    diag_a = coeffs.diag + _shift(nu, lengthscale)
+    if nu == 1:
+        d = diag_a
+    else:
+        sq = torch.square(coeffs.triu)
+        off2 = torch.zeros_like(coeffs.diag).index_add(0, graph.rows, sq).index_add(
+            0, graph.cols, sq)
+        diag_a2 = torch.square(diag_a) + off2
+        d = diag_a2 if nu == 2 else torch.pow(diag_a2, 0.5 * nu)
+    if normalization == "randomwalk":
+        d = d * coeffs.deg
+    return d
+
+
+def noisy_scaled_diag(diag_q: torch.Tensor, scale=None, noise=None) -> torch.Tensor:
+    """Push a Q-diagonal estimate through the Scale and truncated-Neumann
+    Noise wrappers (diagonal part only): q -> s*q -> q(1 - s2 q (1 - s2 q)).
+    Clamped away from zero so the Jacobi preconditioner stays SPD even where
+    the Neumann truncation would cross zero."""
+    d = diag_q
+    if scale is not None:
+        d = d * scale.reshape(())
+    if noise is not None:
+        s2 = noise.reshape(())
+        d = d * (1.0 - s2 * d * (1.0 - s2 * d))
+    return torch.maximum(d, 1e-12 * torch.max(torch.abs(diag_q)))
+
+
+def make_jacobi_precond(diag: torch.Tensor):
+    """M^{-1} v = v / diag, broadcasting over the RHS batch."""
+
+    def apply(v):
+        return v / (diag if v.dim() == 1 else diag[:, None])
+
+    return apply
+
+
+def _scalar_tensor(x):
+    return x if isinstance(x, torch.Tensor) else torch.tensor(float(x))
+
+
+def make_scaled_matvec(matvec, scale, inverse_scale: bool = False) -> Operator:
+    op = as_operator(matvec)
+    scale = _scalar_tensor(scale)
+
+    def mv(v, *consts):
+        s = consts[-1].reshape(())
+        out = op.fn(v, *consts[:-1])
+        return out / s if inverse_scale else out * s
+
+    return Operator(mv, (*op.consts, scale))
+
+
+def make_noisy_matvec(matvec, noise) -> Operator:
+    """Truncated-Neumann noisy precision Q - s2 Q^2 + s2^2 Q^3."""
+    op = as_operator(matvec)
+    noise = _scalar_tensor(noise)
+
+    def mv(v, *consts):
+        s2 = consts[-1].reshape(())
+        q = lambda u: op.fn(u, *consts[:-1])  # noqa: E731
+        return q(v - s2 * q(v - s2 * q(v)))
+
+    return Operator(mv, (*op.consts, noise))
+
+
+def _semisupervised(name: str):
+    raise NotImplementedError(
+        f"{name}: the semisupervised Schur complement is not ported yet "
+        "(ROADMAP queue 1, 'Semisupervised')"
+    )
+
+
+def make_schur_matvec(*args, **kwargs):
+    _semisupervised("make_schur_matvec")
+
+
+def make_schur_matvec_masked(*args, **kwargs):
+    _semisupervised("make_schur_matvec_masked")
+
+
+def labeled_split(labeled_mask):
+    _semisupervised("labeled_split")

@@ -1,0 +1,163 @@
+"""Stochastic Lanczos quadrature (SLQ) log-determinant with unbiased gradient
+(port of ``manifold_gp_tpu.ops.slq``).
+
+Value:  tr(log Q) ~= (n / p) * sum_i  e1' log(T_i) e1
+        with T_i the m-step Lanczos tridiagonalization of Q started at the
+        i-th normalized Rademacher probe (||z||^2 = n).
+Gradient (custom backward, the Hutchinson trace identity):
+        d tr(log Q) / d theta = E_z[ z' Q^{-1} (dQ/dtheta) z ]
+        estimated with the same probes; the solves Q^{-1} z are CG solves
+        performed in the backward pass only (no differentiation through the
+        Lanczos recurrence).
+
+All probes advance together — each Lanczos step is one [N, P] matvec — and
+the P tridiagonal matrices go through one batched ``torch.linalg.eigh``.
+
+Not ported yet: the preconditioned quadrature (``pcg_tridiag_batched``,
+``slq_logdet_mbcg``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from .cg import cg_raw, consts_cotangents
+from .operator import as_operator
+
+_BREAKDOWN_TOL = 1e-10
+
+
+def lanczos_batched(matvec: Callable, q0: torch.Tensor, num_steps: int):
+    """m-step Lanczos without reorthogonalization, batched over columns.
+
+    Args:
+      matvec: symmetric linear map [N, P] -> [N, P].
+      q0: [N, P] unit-norm start vectors.
+      num_steps: m.
+    Returns:
+      alphas [m, P], betas [m, P] (betas[j] couples step j and j+1; the last
+      row is unused), valid [m, P] (False after a breakdown).
+    """
+    n, p = q0.shape
+    num_steps = min(num_steps, n)
+    q_prev = torch.zeros_like(q0)
+    q = q0
+    beta_prev = torch.zeros((p,), dtype=q0.dtype, device=q0.device)
+    alive = torch.ones((p,), dtype=torch.bool, device=q0.device)
+    alphas, betas, valid = [], [], []
+    for _ in range(num_steps):
+        w = matvec(q)
+        alpha = torch.sum(q * w, dim=0)
+        w = w - alpha[None, :] * q - beta_prev[None, :] * q_prev
+        beta = torch.sqrt(torch.sum(w * w, dim=0))
+        alive_next = alive & (beta > _BREAKDOWN_TOL)
+        safe_beta = torch.where(alive_next, beta, torch.ones_like(beta))
+        q_next = torch.where(alive_next[None, :], w / safe_beta[None, :], torch.zeros_like(w))
+        beta_out = torch.where(alive_next, beta, torch.zeros_like(beta))
+        alphas.append(alpha)
+        betas.append(beta_out)
+        valid.append(alive)
+        q_prev, q, beta_prev, alive = q, q_next, beta_out, alive_next
+    return torch.stack(alphas), torch.stack(betas), torch.stack(valid)
+
+
+def _tridiag_e1_quadrature(alphas, betas, valid, f):
+    """Per-probe Gauss quadrature e1' f(T) e1 from Lanczos coefficients.
+
+    alphas/betas/valid: [m, P]. Steps after a breakdown are replaced by an
+    identity block (it decouples from the leading one, so estimates stay
+    exact for graphs whose Krylov space is exhausted early).
+    """
+    a = torch.where(valid, alphas, torch.ones_like(alphas)).T  # [P, m]
+    b = torch.where(valid[1:], betas[:-1], torch.zeros_like(betas[:-1])).T  # [P, m-1]
+    t = torch.diag_embed(a) + torch.diag_embed(b, offset=1) + torch.diag_embed(b, offset=-1)
+    evals, evecs = torch.linalg.eigh(t)
+    w = evecs[:, 0, :] ** 2
+    return torch.sum(w * f(evals), dim=1)
+
+
+def slq_logdet_raw(matvec, probes, num_steps: int, num_nodes: Optional[int] = None):
+    """Forward SLQ estimate of log det Q. probes: [N, P] Rademacher.
+
+    ``num_nodes``: Hutchinson trace dimension; defaults to the probe length.
+    Pass the true node count when probes are zero-padded."""
+    n = probes.shape[0] if num_nodes is None else num_nodes
+    q0 = probes / torch.sqrt(torch.sum(probes * probes, dim=0))[None, :]
+    alphas, betas, valid = lanczos_batched(matvec, q0, num_steps)
+    quad = _tridiag_e1_quadrature(
+        alphas, betas, valid, lambda lam: torch.log(torch.clamp(lam, min=1e-20))
+    )
+    return n * torch.mean(quad)
+
+
+class _SLQLogdet(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fn, precond, num_steps, cg_tol, cg_max_iter, num_nodes, probes, *consts):
+        ctx.fn, ctx.precond = fn, precond
+        ctx.cg_tol, ctx.cg_max_iter = cg_tol, cg_max_iter
+        ctx.save_for_backward(probes, *consts)
+        return slq_logdet_raw(lambda v: fn(v, *consts), probes, num_steps, num_nodes=num_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        probes, *consts = ctx.saved_tensors
+        fn = ctx.fn
+        p = probes.shape[1]
+        solves = cg_raw(lambda v: fn(v, *consts), probes, ctx.cg_tol, ctx.cg_max_iter,
+                        precond=ctx.precond)
+        # d logdet = (1/p) sum_i (Q^{-1} z_i)' dQ z_i
+        bars = consts_cotangents(fn, probes, consts, ctx.needs_input_grad[7:],
+                                 solves * (g / p))
+        return (None, None, None, None, None, None, None, *bars)
+
+
+def slq_logdet(
+    matvec,
+    probes: torch.Tensor,
+    num_steps: int,
+    cg_tol: float = 1e-2,
+    cg_max_iter: int = 1000,
+    precond: Optional[Callable] = None,
+    num_nodes: Optional[int] = None,
+):
+    """Stochastic log det of the SPD operator behind ``matvec``.
+
+    Differentiable w.r.t. the tensors of ``matvec`` (an ``Operator``):
+    unbiased Hutchinson gradient; the probes themselves get none.
+
+    ``precond``: optional M^{-1} matvec for the backward CG solves (the
+    forward Lanczos quadrature stays unpreconditioned).
+    ``num_nodes``: true trace dimension when the probes live in a padded
+    space with zeroed padding rows.
+    """
+    op = as_operator(matvec)
+    return _SLQLogdet.apply(
+        op.fn, precond, int(num_steps), float(cg_tol), int(cg_max_iter),
+        None if num_nodes is None else int(num_nodes), probes, *op.consts,
+    )
+
+
+def rademacher_probes(generator: torch.Generator, n: int, num_probes: int,
+                      dtype=torch.float32, device=None):
+    """[n, num_probes] of +-1 drawn from ``generator`` (on its device), moved
+    to ``device`` (default: the generator's)."""
+    bits = torch.randint(0, 2, (n, num_probes), generator=generator, device=generator.device)
+    probes = (2 * bits - 1).to(dtype)
+    return probes if device is None else probes.to(device)
+
+
+def _mbcg(name: str):
+    raise NotImplementedError(
+        f"{name}: the preconditioned (mBCG) quadrature is not ported yet "
+        "(ROADMAP queue 1, 'Preconditioners and the mBCG log-det')"
+    )
+
+
+def pcg_tridiag_batched(*args, **kwargs):
+    _mbcg("pcg_tridiag_batched")
+
+
+def slq_logdet_mbcg(*args, **kwargs):
+    _mbcg("slq_logdet_mbcg")

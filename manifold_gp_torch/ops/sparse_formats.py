@@ -3,7 +3,9 @@
 The JAX package picks DIA bands when the RCM ordering is banded enough and
 128x128 block-ELL panels otherwise. The DIA format (kernel K4) is not ported
 yet, so ``build_layout`` raises whenever the JAX dispatch would have chosen
-it; with ``use_dia=False`` every call lands on block-ELL panels.
+it; with ``use_dia=False`` every call lands on block-ELL panels, and
+``matvec``, ``matvec_permuted`` and ``make_matvec_ad`` are those of
+``ops.cuda_spmv``.
 """
 
 from __future__ import annotations
@@ -14,10 +16,12 @@ import numpy as np
 
 from . import block_sparse
 from .block_sparse import BlockLayout, assemble, permute_in, permute_out
-from .cuda_spmv import matvec
+from .cuda_spmv import block_matvec as matvec_permuted
+from .cuda_spmv import make_matvec_ad, matvec
 from .graph import SparseGraph
 
-__all__ = ["build_layout", "assemble", "matvec", "permute_in", "permute_out"]
+__all__ = ["build_layout", "assemble", "matvec", "matvec_permuted", "make_matvec_ad",
+           "permute_in", "permute_out"]
 
 
 # DIA constants of the JAX package (ops/dia.py): rows per kernel tile and

@@ -6,6 +6,8 @@ on a worker, so a port test that drew from it (directly or through
 The port's tests make their inputs from generators of their own."""
 
 import numpy as np
+import pytest
+import torch
 
 
 def small_cloud():
@@ -18,3 +20,17 @@ def small_cloud():
     x += 0.01 * rng.standard_normal(x.shape)
     y = np.sin(3 * t)
     return x.astype(np.float32), y.astype(np.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a test module's PyTorch CPU work on one thread (import the name
+    into the module to switch it on). After each parallel region PyTorch's
+    OpenMP workers spin for a while; in a test that alternates PyTorch and
+    JAX calls, on a machine whose cores are shared with other test workers,
+    those spinning threads starve JAX's: the 5,000-node loss test took 290 s
+    beside five busy workers and 12 s on one thread."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)

@@ -22,11 +22,26 @@ FORBIDDEN = ("jax", "jaxlib", "manifold_gp_tpu")
 
 
 def test_import_leaves_no_jax_in_sys_modules():
+    """Every module of the port (and the example) imports with no JAX, no
+    JAX package and no triton behind it, and importing builds or loads no
+    kernel."""
     code = (
-        "import sys, manifold_gp_torch, manifold_gp_torch.ops.cuda_spmv, "
-        "manifold_gp_torch.ops.sparse_formats, manifold_gp_torch.utils; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in %r]; "
-        "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,)
+        "import importlib, pathlib, pkgutil, sys, manifold_gp_torch\n"
+        "build = pathlib.Path(manifold_gp_torch.__file__).parent / 'build'\n"
+        "before = sorted(build.glob('*')) if build.exists() else None\n"
+        "names = [m.name for m in pkgutil.walk_packages(manifold_gp_torch.__path__, "
+        "'manifold_gp_torch.')]\n"
+        "for name in names + ['examples_torch.run_large']: importlib.import_module(name)\n"
+        "need = {'manifold_gp_torch.ops.' + m for m in ('matern', 'cg', 'slq', 'engine', "
+        "'pivchol', 'operator')} | {'manifold_gp_torch.priors', "
+        "'manifold_gp_torch.utils.train', 'manifold_gp_torch.utils.checkpoint'}\n"
+        "assert need <= set(names), need - set(names)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "from manifold_gp_torch.ops import cuda_spmv\n"
+        "assert cuda_spmv._lib is None and cuda_spmv.build_log == ''\n"
+        "after = sorted(build.glob('*')) if build.exists() else None\n"
+        "assert before == after, (before, after)\n"
+        "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN + ("triton",),)
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
@@ -68,6 +83,25 @@ def test_cpu_wrapper_runs_plain_version_without_launching():
     cb = pv.reshape(2, 128, 3)[bc.long()].reshape(2, 256, 3)
     np.testing.assert_allclose(out.numpy(), torch.bmm(blocks, cb).reshape(256, 3).numpy(),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_cpu_bwd_wrapper_runs_plain_version_without_launching():
+    rng = np.random.default_rng(1)
+    bc = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
+    g = torch.from_numpy(rng.standard_normal((256, 3)).astype(np.float32))
+    pv = torch.from_numpy(rng.standard_normal((256, 3)).astype(np.float32))
+    cuda_spmv.bwd_launch_count = 0
+    out = cuda_spmv.bwd_blocks_call(bc, g, pv, s_max=2)
+    assert cuda_spmv.bwd_launch_count == 0
+    cb = pv.reshape(2, 128, 3)[bc.long()].reshape(2, 256, 3)
+    want = torch.bmm(g.reshape(2, 128, 3), cb.transpose(1, 2))
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_kernel_library_hash_covers_every_source():
+    names = sorted(p.name for p in cuda_spmv._SOURCES)
+    assert names == sorted(p.name for p in (ROOT / "manifold_gp_torch" / "csrc").glob("*.cu"))
+    assert all(p.exists() for p in cuda_spmv._SOURCES)
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_data import one_torch_thread  # noqa: F401  (autouse, module scope)
 import manifold_gp_tpu as jmgp
 import manifold_gp_torch as tmgp
 from examples_torch.run_large import torus_points
