@@ -5,10 +5,13 @@
 
 Phases (any failure exits non-zero before the result line is printed):
   1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
-     build of both block-ELL kernels from csrc/ with nvcc (timed);
+     build of the three kernels from csrc/ with nvcc (timed);
   2. kernels vs plain at a small layout (10,240-point torus; B = 1, 37, 128):
      the forward SpMV with f32, bf16 and x3 panels through both entry points
      (resident/stream); the panel-cotangent kernel with f32 and bf16 output;
+  2c. the DIA band kernel K4 vs plain at small DIA layouts (1,500- and
+     10,240-point k = 8 curves; B = 1, 37, 128; f32 and bf16 bands) through
+     dia_matvec_call and through make_matvec_ad's forward and bar_pv;
   3. the serving slice: serve the 262,144-point torus campaign
      (examples_torch/run_large.py::serve_campaign) with the launch counts
      reset to 0 just before and read just after; requires >= 1,543 forward
@@ -35,7 +38,25 @@ Phases (any failure exits non-zero before the result line is printed):
   7. the 16,384-point loss and gradients held to the JAX package's numbers
      (examples_torch/train_pins.json), edge- against panel-space
      cotangents on the card, and a checkpointed run resumed on the card
-     against the uninterrupted one.
+     against the uninterrupted one;
+  8. the curve training slice: train_campaign(manifold="curve", k=8) at
+     262,144 points (3 epochs on DIA bands, then one gradient at the initial
+     and one at the reached hyperparameters), every launch count reset just
+     before and read just after; requires >= 192 K4 launches per gradient
+     (32 Lanczos steps x 3 Neumann terms x nu = 2), no block-ELL launch,
+     finite losses and gradients, a loss that falls;
+  8a. serve the same curve on the host f64 basis at the hyperparameters
+     phase 8 reached: finite outputs, RMSE vs truth below the label-noise
+     floor;
+  8b. K4 vs plain at the served layout (B = 1, 100, 128) with times: kernel,
+     plain version, library yardstick (one torch.sparse.mm of the same L_sym
+     as CSR, used nowhere in the port) and the bound; the block-ELL forward
+     kernel on the same graph (use_dia=False) at B = 128; and both formats
+     on the k = 16 curve (DIA forced with 128 offsets): the DIA-vs-panel
+     crossover on this card;
+  9. the 16,384-point curve held to the JAX package's numbers
+     (examples_torch/curve_pins.json): loss and gradients with shared
+     probes, serve RMSE/NLL on the host f64 basis.
 Then one JSON line with the kernel table, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -64,6 +85,10 @@ EDGE_PANEL_RTOL = 5e-2  # of the largest gradient: the panel path rounds its
                         # edge path keeps f32; 1.7e-2 was measured
 K3_PER_GRADIENT = 12   # 2 terms (quad, Hutchinson) x 3 Neumann applies x nu = 2
 FWD_PER_GRADIENT = 150  # 24 Lanczos steps x 6 alone are 144
+K4_PER_GRADIENT = 192  # curve: 32 Lanczos steps x 3 Neumann applies x nu = 2
+EDGE_TIES = 1e-4  # share of kNN edges the port's and JAX's searches may
+                  # pick differently where two distances tie in f32 (one
+                  # edge in 57,878 on the 16k curve)
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # HBM bytes/s, f32 FLOP/s outside the tensor cores, bf16 tensor FLOP/s.
@@ -200,6 +225,54 @@ def compare_bwd(layout, g, pv, out_dtype, label, timing=None):
     return rec
 
 
+def compare_dia(layout, band, pv, label):
+    """K4 vs plain on the card through dia_matvec_call and through
+    make_matvec_ad's forward and bar_pv; returns a record."""
+    import torch
+
+    from manifold_gp_torch.ops import dia
+
+    want = dia.matvec_permuted(layout, band, pv)
+    scale = float(want.abs().max())
+    rec = {"case": label, "batch": int(pv.shape[1]), "scale": scale,
+           "band": str(band.dtype).replace("torch.", "")}
+    g = torch.randn(pv.shape, generator=torch.Generator(device=pv.device).manual_seed(3),
+                    device=pv.device)
+    want_bar = dia.matvec_permuted(layout, band, g)
+    pvr = pv.clone().requires_grad_(True)
+    fwd = dia.make_matvec_ad(layout)(band, pvr)
+    fwd.backward(g)
+    for entry, got, ref in (("dia_matvec_call", dia.dia_matvec_call(layout, band, pv), want),
+                            ("make_matvec_ad", fwd.detach(), want),
+                            ("bar_pv", pvr.grad, want_bar)):
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        rel = err / max(float(ref.abs().max()), 1e-30)
+        rec[entry] = {"max_abs_err": err, "max_rel_err": rel}
+        ok = bool(torch.isfinite(got).all()) and rel <= SMALL_TOL
+        print(f"  {label:<34} B={pv.shape[1]:<4} {entry:<21} max_rel_err={rel:.3e} "
+              f"(threshold {SMALL_TOL:.0e}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"K4 disagrees with its plain version: {label} {entry} rel={rel}")
+    return rec
+
+
+def band_csr(layout, band):
+    """The operator of a DIA band as a CUDA CSR matrix [Npd, Npd] (its
+    nonzero band entries), for the library yardstick."""
+    import torch
+
+    npd, d = layout.num_padded, layout.num_offsets
+    offs = torch.tensor(layout.offsets, device=band.device)
+    rows = torch.arange(npd, device=band.device)[:, None].expand(npd, d)
+    cols = rows + offs[None, :]
+    vals = band[:, :d].float()
+    keep = (vals != 0) & (cols >= 0) & (cols < npd)
+    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]), vals[keep],
+                                  (npd, npd)).coalesce()
+    return coo.to_sparse_csr()
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -209,17 +282,21 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
     csrc = ROOT / "manifold_gp_torch" / "csrc"
-    if not ((csrc / "block_ell_spmv.cu").exists() and (csrc / "block_ell_bwd_blocks.cu").exists()):
+    if not all((csrc / name).exists() for name in
+               ("block_ell_spmv.cu", "block_ell_bwd_blocks.cu", "dia_spmv.cu")):
         fail(f"the manifold_gp_torch package is not next to {__file__}")
     sys.path.insert(0, str(ROOT))
 
-    from manifold_gp_torch.ops import cuda_spmv
+    from manifold_gp_torch.ops import cuda_spmv, dia
     from manifold_gp_torch.ops.graph import build_graph
     from manifold_gp_torch.ops.block_sparse import assemble, build_block_layout, permute_in
     from manifold_gp_torch.ops.laplacian import laplacian_coeffs
     from examples_torch.run_large import (
+        CURVE_HYPERS,
         INITIAL_HYPERS,
         build_campaign,
+        curve_points,
+        launch_counts,
         layout_record,
         loss_and_grad,
         rademacher_numpy,
@@ -279,6 +356,24 @@ def main():
                                          permute_in(small_layout, v).contiguous(), out_dtype,
                                          f"small bwd {str(out_dtype)[6:]}"))
     report["small_bwd"] = small_bwd
+
+    print("== phase 2c: DIA band kernel K4 vs plain at small layouts")
+    small_dia = []
+    for n_small in (1500, 10_240):
+        xc, _ = curve_points(n_small, seed=1)
+        gc = build_graph(xc, 8, device=dev)
+        dl = dia.build_dia_layout(gc, max_offsets=128)
+        if dl is None:
+            fail(f"the {n_small}-point k=8 curve has no DIA layout")
+        cc = laplacian_coeffs(gc, 2.0 * float(gc.sqdist.median().sqrt()))
+        print(f"  {n_small}-point curve: D={dl.num_offsets} W={dl.halfwidth} Npd={dl.num_padded}")
+        for band_dtype in (torch.float32, torch.bfloat16):
+            band = dia.assemble(dl, cc.diag, cc.triu, dtype=band_dtype)
+            for batch in (1, 37, 128):
+                v = torch.randn((n_small, batch), generator=gen, device=dev)
+                small_dia.append(compare_dia(dl, band, dia.permute_in(dl, v).contiguous(),
+                                             f"curve{n_small} {str(band_dtype)[6:]}"))
+    report["small_dia"] = small_dia
 
     # -- phase 3: the slice at 262,144 points ------------------------------
     print("== phase 3: serve the 262,144-point torus")
@@ -575,11 +670,188 @@ def main():
           f"panel {parity['peak_mem_bytes_panel'] / 1e9:.3f} GB")
     report["train_16k"] = parity
 
+    # -- phase 8: the curve training slice at 262,144 points ------------------
+    print("== phase 8: train the 262,144-point curve at k = 8 (DIA bands)")
+    torch.cuda.empty_cache()
+    cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = dia.dia_launch_count = 0
+    cres, _, cmodel = train_campaign(n=262_144, epochs=3, device=dev, manifold="curve", k=8)
+    curve_counts = launch_counts()
+    cres["launches"] = curve_counts
+    print("  " + json.dumps({k: v for k, v in cres.items() if k != "epoch_log"}))
+    print(f"  layout: DIA, D={cres['num_offsets']} offsets, halfwidth W={cres['halfwidth']}, "
+          f"Npd={cres['num_padded']} rows, band {cres['band_bytes_f32'] / 1e6:.1f} MB stored "
+          f"({cres['band_bytes_used_f32'] / 1e6:.1f} MB in the D used lanes)")
+    for row in cres["epoch_log"]:
+        print(f"  epoch {row['epoch']}: loss {row['loss']:.6f} in {row['seconds']:.3f} s  "
+              f"noise {row['noise']:.5f} outputscale {row['outputscale']:.4f} "
+              f"lengthscale {row['lengthscale']:.4f} graphbandwidth {row['graphbandwidth']:.4f}")
+    if cres["layout"] != "dia":
+        fail(f"the k=8 curve did not take the DIA layout: {cres['layout']}")
+    for label, rec in cres["gradients"].items():
+        print(f"  gradient at {label} hyperparameters: {rec['seconds']:.3f} s, CG iterations "
+              f"{rec['cg_iters']}, K4 launches {rec['dia_launches']}, loss {rec['loss']:.6f}")
+        if rec["dia_launches"] < K4_PER_GRADIENT:
+            fail(f"{rec['dia_launches']} K4 launches in the curve gradient at {label} "
+                 f"hyperparameters (< {K4_PER_GRADIENT})")
+    print(f"  training: {cres['s_per_epoch']:.3f} s per epoch (median), K4 launches "
+          f"{cres['train_launches']['dia_launches']} over {cres['epochs']} epochs, "
+          f"{curve_counts['dia_launches']} in the phase; peak memory "
+          f"{cres['peak_mem_bytes'] / 1e9:.3f} GB")
+    if curve_counts["spmv_launches"] or curve_counts["bwd_blocks_launches"]:
+        fail(f"block-ELL kernels launched on the DIA path: {curve_counts}")
+    if cres["train_launches"]["dia_launches"] < K4_PER_GRADIENT * cres["epochs"]:
+        fail("K4 launched fewer than 192 times per epoch")
+    if not cres["finite"]:
+        fail("non-finite loss or gradient in the 262k curve training phase")
+    if not cres["history"][-1] < cres["history"][0]:
+        fail(f"the curve training loss did not fall: {cres['history']}")
+    report["curve_train_262k"] = cres
+    del cmodel
+    torch.cuda.empty_cache()
+
+    print("== phase 8a: serve the 262,144-point curve on the host f64 basis")
+    cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = dia.dia_launch_count = 0
+    sres, sparams, smodel = serve_campaign(n=262_144, device=dev, manifold="curve", k=8,
+                                           hypers=cres["trained_hypers"])
+    sres["launches"] = launch_counts()
+    print("  " + json.dumps(sres))
+    print(f"  graph {sres['graph_build_s']:.2f} s, layout {sres['layout_s']:.2f} s, "
+          f"basis {sres['basis_s']:.2f} s (host f64), eval {sres['eval_s']:.2f} s; "
+          f"test RMSE {sres['rmse_noisy_test']:.6f} NLL {sres['nll_noisy_test']:.6f} "
+          f"RMSE vs truth {sres['rmse_vs_truth']:.6f} (noise floor "
+          f"{sres['noise_floor_rmse']:.6f}; no k = 8 number to hold it to)")
+    if not sres["finite"]:
+        fail("non-finite basis or posterior on the 262k curve")
+    if not sres["rmse_vs_truth"] < sres["noise_floor_rmse"]:
+        fail(f"curve RMSE vs truth {sres['rmse_vs_truth']} is not below the noise floor")
+    report["curve_serve_262k"] = sres
+
+    print("== phase 8b: K4 vs plain at the served curve layout, and DIA vs panels")
+    dlayout = smodel.kernel.block_layout
+    dcoeffs = smodel.kernel.coeffs(sparams)
+    dband = dia.assemble(dlayout, dcoeffs.diag, dcoeffs.triu)
+    csr = band_csr(dlayout, dband)
+
+    def dia_timing(layout, band, pv, csr=None):
+        npd, d = layout.num_padded, layout.num_offsets
+        b = pv.shape[1]
+        nbytes = npd * d * band.element_size() + 2 * npd * b * 4
+        flops = 2 * npd * d * b
+        t_bytes, t_ops = nbytes / hbm_bps * 1e3, flops / f32_flops * 1e3
+        rec = {"ms": time_ms(lambda: dia.dia_matvec_call(layout, band, pv)),
+               "plain_ms": time_ms(lambda: dia.matvec_permuted(layout, band, pv), reps=3),
+               "library_ms": None if csr is None else time_ms(lambda: torch.sparse.mm(csr, pv)),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "flops": flops}
+        if csr is not None:
+            lib = torch.sparse.mm(csr, pv)
+            rec["library_rel_err"] = float((lib - dia.matvec_permuted(layout, band, pv)).abs().max()
+                                           / lib.abs().max())
+        return rec
+
+    main_dia = []
+    for batch in (1, 100, 128):
+        v = torch.randn((dlayout.num_nodes, batch), generator=gen, device=dev)
+        pv = dia.permute_in(dlayout, v).contiguous()
+        rec = compare_dia(dlayout, dband, pv, "served curve float32")
+        rec.update(dia_timing(dlayout, dband, pv, csr))
+        print(f"    ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+              f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']}); sparse.mm vs plain {rec['library_rel_err']:.1e}")
+        main_dia.append(rec)
+    del csr
+    report["main_dia"] = main_dia
+
+    def panel_ms(graph, coeffs, pv_nodes):
+        blayout = build_block_layout(graph)
+        panels = assemble(blayout, coeffs.diag, coeffs.triu)
+        pvb = permute_in(blayout, pv_nodes).contiguous()
+        ms = time_ms(lambda: cuda_spmv.block_matvec(blayout, panels, pvb))
+        return ms, blayout.max_blocks, blayout.num_row_blocks
+
+    crossover = []
+    v128 = torch.randn((dlayout.num_nodes, 128), generator=gen, device=dev)
+    pms, s_blocks, nrb = panel_ms(smodel.kernel.graph, dcoeffs, v128)
+    crossover.append({"k": 8, "num_offsets": dlayout.num_offsets, "halfwidth": dlayout.halfwidth,
+                      "batch": 128, "dia_ms": main_dia[-1]["ms"], "panel_ms": pms,
+                      "max_blocks": s_blocks, "num_row_blocks": nrb})
+    del smodel, sparams, dband, v128
+    torch.cuda.empty_cache()
+    # the k = 16 curve: DIA forced (128 offsets allowed) against panels
+    xc, _ = curve_points(262_144, seed=0)
+    g16 = build_graph(xc, 16, device=dev)
+    c16 = laplacian_coeffs(g16, 2.0 * float(g16.sqdist.median().sqrt()))
+    l16 = dia.build_dia_layout(g16, max_offsets=128)
+    if l16 is None:
+        fail("the k=16 curve has no DIA layout even with 128 offsets")
+    b16 = dia.assemble(l16, c16.diag, c16.triu)
+    v16 = torch.randn((l16.num_nodes, 128), generator=gen, device=dev)
+    pv16 = dia.permute_in(l16, v16).contiguous()
+    compare_dia(l16, b16, pv16, "k16 curve float32")
+    dms = dia_timing(l16, b16, pv16)["ms"]
+    pms, s_blocks, nrb = panel_ms(g16, c16, v16)
+    crossover.append({"k": 16, "num_offsets": l16.num_offsets, "halfwidth": l16.halfwidth,
+                      "batch": 128, "dia_ms": dms, "panel_ms": pms, "max_blocks": s_blocks,
+                      "num_row_blocks": nrb})
+    for row in crossover:
+        print(f"  crossover k={row['k']}: D={row['num_offsets']} W={row['halfwidth']} DIA "
+              f"{row['dia_ms']:.4f} ms vs block-ELL f32 panels {row['panel_ms']:.4f} ms "
+              f"(S={row['max_blocks']}) at B={row['batch']}")
+    report["dia_vs_panels"] = crossover
+    del g16, c16, l16, b16, v16, pv16
+    torch.cuda.empty_cache()
+
+    # -- phase 9: 16,384-point curve against the JAX pins -------------------
+    print("== phase 9: the 16,384-point curve, held to the JAX pins")
+    cpins = json.loads((ROOT / "examples_torch" / "curve_pins.json").read_text())
+    camp = build_campaign(n=cpins["n"], device=dev, num_test=cpins["num_test"], k=cpins["k"],
+                          seed=cpins["seed"], manifold="curve",
+                          cg_tolerance=cpins["cg_tolerance"], cg_max_iter=cpins["cg_max_iter"])
+    rec = layout_record(camp, cpins["n"], cpins["k"], cpins["num_modes"])
+    for key in ("num_offsets", "halfwidth", "num_padded"):
+        if rec[key] != cpins[key]:
+            fail(f"16k curve {key}: port {rec[key]} != JAX {cpins[key]}")
+    if abs(rec["num_edges"] - cpins["num_edges"]) > EDGE_TIES * cpins["num_edges"]:
+        fail(f"16k curve edges: port {rec['num_edges']} vs JAX {cpins['num_edges']}")
+    probes = torch.from_numpy(rademacher_numpy(
+        cpins["probe_seed"], camp.model.num_data, cpins["num_probes"])).to(dev)
+    closs, cgrads = loss_and_grad(camp.model, camp.model.init_params(**cpins["train"]["hypers"]),
+                                  probes=probes)
+    pin = cpins["train"]
+    crel = abs(closs - pin["loss"]) / abs(pin["loss"])
+    cscale = max(abs(v) for v in pin["grads"].values())
+    cgerr = max(abs(cgrads[k] - pin["grads"][k]) for k in pin["grads"]) / cscale
+    print(f"  edges port {rec['num_edges']} jax {cpins['num_edges']}; D={rec['num_offsets']} "
+          f"W={rec['halfwidth']} Npd={rec['num_padded']}")
+    print(f"  loss port {closs:.7f} jax {pin['loss']:.7f} rel {crel:.2e} "
+          f"(rtol {cpins['loss_rtol']}); gradients max diff / max |grad| {cgerr:.2e} "
+          f"(rtol {cpins['grad_rtol']})")
+    if not crel <= cpins["loss_rtol"]:
+        fail(f"16k curve loss differs from the JAX pin by {crel:.2e}")
+    if not cgerr <= cpins["grad_rtol"]:
+        fail(f"16k curve gradients differ from the JAX pins by {cgerr:.2e}")
+    del camp, probes
+    r16c, _, _ = serve_campaign(n=cpins["n"], device=dev, num_test=cpins["num_test"],
+                                manifold="curve", k=cpins["k"], hypers=cpins["serve"]["hypers"])
+    serve_checks = {}
+    for key in ("rmse_vs_truth", "rmse_noisy_test", "nll_noisy_test"):
+        rel = abs(r16c[key] - cpins["serve"][key]) / abs(cpins["serve"][key])
+        serve_checks[key] = {"port": r16c[key], "jax": cpins["serve"][key], "rel": rel}
+        print(f"  serve {key}: port {r16c[key]:.7f} jax {cpins['serve'][key]:.7f} rel {rel:.2e} "
+              f"(rtol {cpins['serve_rtol']})")
+        if not rel <= cpins["serve_rtol"]:
+            fail(f"16k curve serve {key} differs from the JAX pin by {rel:.2e}")
+    report["curve_16k"] = {"loss": closs, "grads": cgrads, "loss_rel": crel,
+                           "grad_rel_of_max": cgerr, "serve": serve_checks,
+                           "num_edges": rec["num_edges"]}
+
     # -- result --------------------------------------------------------------
     f32 = main[0]
     bwd = next(r for r in main_bwd if r["batch"] == 48 and r["out_dtype"] == "float32")
-    if min(launches, train_fwd, train_bwd) <= 0:
+    if min(launches, train_fwd, train_bwd, curve_counts["dia_launches"]) <= 0:
         fail("a kernel of a main path was never launched on it")
+    k4 = main_dia[-1]  # B = 128, the probes' width
     kernels = [{
         "name": "block_ell_spmv",
         "route": "cuda",
@@ -620,6 +892,26 @@ def main():
             {k: r[k] for k in ("batch", "out_dtype", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms")}
             for r in main_bwd if r is not bwd
+        ],
+    }, {
+        "name": "dia_spmv",
+        "route": "cuda",
+        "source": "manifold_gp_torch/csrc/dia_spmv.cu",
+        "replaces": "manifold_gp_tpu/ops/dia.py:192",
+        "launches": curve_counts["dia_launches"],
+        "launches_by_path": {"curve_train": curve_counts["dia_launches"],
+                             "curve_serve": sres["launches"]["dia_launches"]},
+        "max_abs_err": k4["dia_matvec_call"]["max_abs_err"],
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": k4["library_ms"],
+        "band": "float32",
+        "shape": [dlayout.num_padded, dlayout.num_offsets, 128],
+        "other_shapes": [
+            {k: r[k] for k in ("batch", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for r in main_dia if r is not k4
         ],
     }]
     report["kernels"] = kernels

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where one training gradient of the campaign spends its time on the card.
 
-Builds the campaign (``run_large.build_campaign``, Jacobi preconditioner),
+Builds the campaign (``run_large.build_campaign`` on the torus or the curve,
+Jacobi preconditioner),
 takes one ``mll_loss`` gradient to warm up (kernel build, cuSOLVER handles),
 then traces a second one with ``torch.profiler`` and prints one JSON line:
 the wall time of the traced gradient, the summed device time of every kernel
@@ -10,6 +11,7 @@ largest kernels by device time with their launch counts.
 
   python examples_torch/profile_gradient.py --n 262144              # initial hyperparameters
   python examples_torch/profile_gradient.py --n 262144 --trained    # where CG runs long
+  python examples_torch/profile_gradient.py --n 262144 --manifold curve   # DIA bands, K4
 """
 
 from __future__ import annotations
@@ -23,20 +25,20 @@ import time
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from examples_torch.run_large import (  # noqa: E402
-    CAMPAIGN_HYPERS,
     INITIAL_HYPERS,
+    MANIFOLDS,
     build_campaign,
     loss_and_grad,
 )
 
 
-def profile_gradient(n: int, trained: bool, top: int = 12) -> dict:
+def profile_gradient(n: int, trained: bool, top: int = 12, manifold: str = "torus") -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    camp = build_campaign(n=n, device="cuda", precond_type="jacobi")
+    camp = build_campaign(n=n, device="cuda", manifold=manifold, precond_type="jacobi")
     model = camp.model
-    params = model.init_params(**(CAMPAIGN_HYPERS if trained else INITIAL_HYPERS))
+    params = model.init_params(**(MANIFOLDS[manifold]["hypers"] if trained else INITIAL_HYPERS))
     generator = torch.Generator(device=model.device).manual_seed(1)
     loss_and_grad(model, params, generator=generator)
     torch.cuda.synchronize()
@@ -51,6 +53,7 @@ def profile_gradient(n: int, trained: bool, top: int = 12) -> dict:
     device_ms = sum(r[1] for r in rows)
     return {
         "n": n,
+        "manifold": manifold,
         "hyperparameters": "trained" if trained else "initial",
         "device": torch.cuda.get_device_name(0),
         "loss": loss,
@@ -68,8 +71,9 @@ def main():
     ap.add_argument("--n", type=int, default=262_144)
     ap.add_argument("--trained", action="store_true",
                     help="the campaign's trained hyperparameters instead of the initial ones")
+    ap.add_argument("--manifold", choices=sorted(MANIFOLDS), default="torus")
     args = ap.parse_args()
-    print(json.dumps(profile_gradient(args.n, args.trained)))
+    print(json.dumps(profile_gradient(args.n, args.trained, manifold=args.manifold)))
 
 
 if __name__ == "__main__":

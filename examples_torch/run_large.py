@@ -2,12 +2,21 @@
 """The large-N IMGP campaign with the PyTorch port: serve it, or train it.
 
 The port's counterpart of ``examples/run_large.py``'s campaign, in two
-halves that share its set-up (``build_campaign``): a torus sample in R^3 (262,144 points by default, 2,048
-held out), labels y_true + 0.1 N(0,1) normalized by train statistics, an
-exact kNN graph (k = 16) built on the device, the unit-bandwidth rescale and
-bandwidth floor of the campaign, its InferenceConfig (block-ELL panels with
-``use_dia=False``, bf16 panels, edge-space solve cotangents, the
-Chebyshev-filtered basis above ``eigh_max_size``).
+halves that share its set-up (``build_campaign``): a sample of 262,144
+points (by default; 2,048 held out) on one of the campaign's two manifolds,
+labels y_true + 0.1 N(0,1) normalized by train statistics, an exact kNN
+graph built on the device, the unit-bandwidth rescale and bandwidth floor of
+the campaign, and its InferenceConfig for that manifold:
+
+  * ``manifold="torus"`` (default): a torus in R^3, k = 16, 100 modes,
+    block-ELL panels (``use_dia=False``), bf16 panels, edge-space solve
+    cotangents, 48 probes, 24 Lanczos steps, the Chebyshev-filtered basis;
+  * ``manifold="curve"``: the closed 1-D curve in R^3, k = 8, 50 modes, DIA
+    bands (``use_dia=True``; the RCM ordering has 21 diagonals), f32 bands,
+    panel-space solve cotangents, 128 probes, 32 Lanczos steps, the float64
+    shift-invert basis on the host (``eigensolver="host_f64"``: the curve's
+    low band lies below the f32 assembly noise floor), and the Jacobi
+    preconditioner (pivoted Cholesky is not ported).
 
 ``serve_campaign``: given hyperparameters (default: the trained values of
 the 262k torus campaign), one basis solve and the evaluation tail: test
@@ -23,6 +32,7 @@ Usage:
   python examples_torch/run_large.py --n 8192 --cpu  # small serve on the CPU
   python examples_torch/run_large.py --train --n 262144 --epochs 3
   python examples_torch/run_large.py --train --n 4096 --epochs 2 --cpu
+  python examples_torch/run_large.py --manifold curve --train --n 262144 --epochs 3
 """
 
 from __future__ import annotations
@@ -46,6 +56,23 @@ CAMPAIGN_HYPERS = {
     "lengthscale": 3.38,
     "noise": 0.002788,
     "outputscale": 2.2967,
+}
+
+# Trained hyperparameters of the 262k curve campaign (k = 16, host-f64
+# basis; tools/r5/campaign_262k_f64.json and the last row of its metrics
+# log for the outputscale).
+CURVE_HYPERS = {
+    "graphbandwidth": 0.2325,
+    "lengthscale": 3.0813,
+    "noise": 0.003473,
+    "outputscale": 1.9376,
+}
+
+# Per-manifold settings that differ: neighbours, modes, served
+# hyperparameters.
+MANIFOLDS = {
+    "torus": {"k": 16, "num_modes": 100, "hypers": CAMPAIGN_HYPERS},
+    "curve": {"k": 8, "num_modes": 50, "hypers": CURVE_HYPERS},
 }
 
 
@@ -109,13 +136,14 @@ class Campaign:
     timings: dict
 
 
-def build_campaign(n: int = 262_144, device="cuda", k: int = 16, num_test: int = 2048,
-                   num_modes: int = 100, seed: int = 0, nu: int = 2,
-                   **cfg_overrides) -> Campaign:
-    """The campaign up to the model: torus sample, split, label
-    normalization, exact kNN graph on the device, unit-bandwidth rescale,
-    bandwidth floor, the campaign's InferenceConfig (with ``cfg_overrides``
-    replacing fields of it), kernel and model."""
+def build_campaign(n: int = 262_144, device="cuda", k: int = None, num_test: int = 2048,
+                   num_modes: int = None, seed: int = 0, nu: int = 2,
+                   manifold: str = "torus", **cfg_overrides) -> Campaign:
+    """The campaign up to the model: sample of ``manifold`` ("torus" or
+    "curve"), split, label normalization, exact kNN graph on the device,
+    unit-bandwidth rescale, bandwidth floor, the campaign's InferenceConfig
+    for that manifold (with ``cfg_overrides`` replacing fields of it),
+    kernel and model. ``k`` and ``num_modes`` default to the manifold's."""
     import torch
 
     from manifold_gp_torch import InferenceConfig, RiemannGP, RiemannMaternKernel
@@ -124,10 +152,16 @@ def build_campaign(n: int = 262_144, device="cuda", k: int = 16, num_test: int =
     from manifold_gp_torch.parameters import GreaterThan
 
     device = resolve_device(device)
+    k = MANIFOLDS[manifold]["k"] if k is None else k
+    num_modes = MANIFOLDS[manifold]["num_modes"] if num_modes is None else num_modes
     timings = {}
     rng = np.random.default_rng(seed)
-    x_all, u_all, v_all = torus_points(n, seed=seed)
-    y_true = np.sin(2 * u_all) + 0.5 * np.cos(3 * u_all) * np.sin(2 * v_all)
+    if manifold == "torus":
+        x_all, u_all, v_all = torus_points(n, seed=seed)
+        y_true = np.sin(2 * u_all) + 0.5 * np.cos(3 * u_all) * np.sin(2 * v_all)
+    else:
+        x_all, t_all = curve_points(n, seed=seed)
+        y_true = np.sin(3 * t_all) + 0.5 * np.sin(7 * t_all)
     y_noisy = (y_true + 0.1 * rng.standard_normal(n)).astype(np.float32)
     perm = rng.permutation(n)
     test_idx = perm[:num_test]
@@ -152,12 +186,21 @@ def build_campaign(n: int = 262_144, device="cuda", k: int = 16, num_test: int =
     graph = dataclasses.replace(graph, sqdist=graph.sqdist / eps2)
     train_x_s = train_x / eps
     test_x_s = test_x / eps
-    cfg = InferenceConfig(
-        max_cholesky=0, dense_operator_max_size=0, num_probes=48,
-        lanczos_max_iter=24, cg_tolerance=1e-2, cg_max_iter=200,
-        precond_type="pivchol", spmv_dtype="bfloat16",
-        solve_cotangent="edge", use_dia=False, eigensolver="chebyshev",
-    ).replace(**cfg_overrides)
+    if manifold == "torus":
+        cfg = InferenceConfig(
+            max_cholesky=0, dense_operator_max_size=0, num_probes=48,
+            lanczos_max_iter=24, cg_tolerance=1e-2, cg_max_iter=200,
+            precond_type="pivchol", spmv_dtype="bfloat16",
+            solve_cotangent="edge", use_dia=False, eigensolver="chebyshev",
+        )
+    else:
+        cfg = InferenceConfig(
+            max_cholesky=0, dense_operator_max_size=0, num_probes=128,
+            lanczos_max_iter=32, cg_tolerance=1e-2, cg_max_iter=200,
+            precond_type="jacobi", spmv_dtype="float32",
+            solve_cotangent="panel", use_dia=True, eigensolver="host_f64",
+        )
+    cfg = cfg.replace(**cfg_overrides)
     # The reference's data-driven bandwidth floor: every node's nearest edge
     # weight stays above 1e-4.
     n_tr = train_x.shape[0]
@@ -185,35 +228,63 @@ def build_campaign(n: int = 262_144, device="cuda", k: int = 16, num_test: int =
 
 
 def layout_record(camp: Campaign, n: int, k: int, num_modes: int) -> dict:
-    """Sizes of the campaign's graph and block-ELL layout."""
+    """Sizes of the campaign's graph and layout: block-ELL (row blocks, S,
+    f32 panel bytes) or DIA (D offsets, halfwidth W, padded rows Npd, the
+    stored 128-lane band's bytes and the bytes of its D used lanes, f32)."""
+    from manifold_gp_torch.ops.dia import BAND_WIDTH, DiaLayout
+
     layout = camp.model.kernel.block_layout
-    return {
+    rec = {
         "n": n,
         "k": k,
         "num_modes": num_modes,
         "device": str(camp.model.device),
         "num_edges": int(camp.graph.num_edges),
-        "max_blocks": int(layout.max_blocks),
-        "num_row_blocks": int(layout.num_row_blocks),
-        "panel_bytes_f32": int(layout.panel_elems * 4),
         "graphbandwidth_floor": camp.gb_min,
     }
+    if isinstance(layout, DiaLayout):
+        rec.update(layout="dia", num_offsets=layout.num_offsets,
+                   halfwidth=layout.halfwidth, num_padded=layout.num_padded,
+                   band_bytes_f32=layout.num_padded * BAND_WIDTH * 4,
+                   band_bytes_used_f32=layout.num_padded * layout.num_offsets * 4)
+    else:
+        rec.update(layout="block_ell", max_blocks=int(layout.max_blocks),
+                   num_row_blocks=int(layout.num_row_blocks),
+                   panel_bytes_f32=int(layout.panel_elems * 4))
+    return rec
 
 
-def serve_campaign(n: int = 262_144, hypers: dict = CAMPAIGN_HYPERS,
-                   device="cuda", k: int = 16, num_test: int = 2048,
-                   num_modes: int = 100, seed: int = 0, nu: int = 2):
-    """Build, solve the basis once and score the held-out points.
+def launch_counts() -> dict:
+    """The launch counters of the port's kernels: forward block-ELL SpMV
+    (K1/K2), panel cotangent (K3), DIA band SpMV (K4)."""
+    from manifold_gp_torch.ops import cuda_spmv, dia
+
+    return {"spmv_launches": cuda_spmv.launch_count,
+            "bwd_blocks_launches": cuda_spmv.bwd_launch_count,
+            "dia_launches": dia.dia_launch_count}
+
+
+def launches_since(before: dict) -> dict:
+    return {key: value - before[key] for key, value in launch_counts().items()}
+
+
+def serve_campaign(n: int = 262_144, hypers: dict = None,
+                   device="cuda", k: int = None, num_test: int = 2048,
+                   num_modes: int = None, seed: int = 0, nu: int = 2,
+                   manifold: str = "torus"):
+    """Build, solve the basis once and score the held-out points, at
+    ``hypers`` (default: the manifold's trained campaign values).
 
     Returns (result dict, params, model). The result holds the timings
     (host clock around work that ends in a device synchronize), the layout
-    size, the SpMV kernel's launch count during the basis solve, and the
+    size, the kernels' launch counts during the basis solve, and the
     metrics."""
-    from manifold_gp_torch.ops import cuda_spmv
     from manifold_gp_torch.utils import test_model
 
+    hypers = MANIFOLDS[manifold]["hypers"] if hypers is None else hypers
     camp = build_campaign(n=n, device=device, k=k, num_test=num_test,
-                          num_modes=num_modes, seed=seed, nu=nu)
+                          num_modes=num_modes, seed=seed, nu=nu, manifold=manifold)
+    k, num_modes = camp.model.kernel.nearest_neighbors, camp.model.kernel.num_modes
     model, timings = camp.model, camp.timings
     kernel, device = model.kernel, model.device
     params = model.init_params(
@@ -221,12 +292,12 @@ def serve_campaign(n: int = 262_144, hypers: dict = CAMPAIGN_HYPERS,
         graphbandwidth=hypers["graphbandwidth"], lengthscale=hypers["lengthscale"],
     )
 
-    launches_before = cuda_spmv.launch_count
+    before = launch_counts()
     t0 = time.perf_counter()
     basis = kernel.eval_basis(params)
     _sync(device)
     timings["basis_s"] = time.perf_counter() - t0
-    basis_launches = cuda_spmv.launch_count - launches_before
+    basis_launches = launches_since(before)
     # test_model re-runs eval(); serve the solved basis instead of solving
     # it again.
     kernel.eval_basis = lambda p: basis
@@ -241,7 +312,10 @@ def serve_campaign(n: int = 262_144, hypers: dict = CAMPAIGN_HYPERS,
     eigval = basis[0].cpu().numpy()
     result = {
         **layout_record(camp, n, k, num_modes),
-        "basis_spmv_launches": int(basis_launches),
+        "manifold": manifold,
+        "eigensolver": camp.cfg.eigensolver,
+        "basis_spmv_launches": basis_launches["spmv_launches"],
+        "basis_dia_launches": basis_launches["dia_launches"],
         "rmse_vs_truth": rmse_true,
         "rmse_noisy_test": rmse,
         "nll_noisy_test": nll,
@@ -307,37 +381,33 @@ def cg_iterations(model, params, rhs) -> int:
     return iters
 
 
-def train_campaign(n: int = 262_144, epochs: int = 3, device="cuda", k: int = 16,
-                   num_test: int = 2048, num_modes: int = 100, seed: int = 0,
-                   nu: int = 2, lr: float = 1e-1, trained_hypers: dict = CAMPAIGN_HYPERS,
-                   verbose: bool = False):
+def train_campaign(n: int = 262_144, epochs: int = 3, device="cuda", k: int = None,
+                   num_test: int = 2048, num_modes: int = None, seed: int = 0,
+                   nu: int = 2, lr: float = 1e-1, trained_hypers: dict = None,
+                   verbose: bool = False, manifold: str = "torus"):
     """Train the campaign's hyperparameters for ``epochs`` epochs from its
-    initial values, then take one loss-and-gradient at ``trained_hypers``
-    (where CG runs long).
+    initial values, then take one loss-and-gradient at the initial values
+    and one at ``trained_hypers`` (default: the torus campaign's trained
+    values, where CG runs long; for the curve, the values these epochs
+    reached).
 
     The campaign's configuration with the package's default preconditioner
     (``precond_type="jacobi"``; the pivoted-Cholesky one is not ported).
     Returns (result dict, params, model): per-epoch loss, hyperparameters
-    and seconds, CG iteration counts, the launch counts of both SpMV
-    kernels per phase, and peak device memory."""
+    and seconds, CG iteration counts, the launch counts of the kernels per
+    phase, and peak device memory."""
     import torch
 
-    from manifold_gp_torch.ops import cuda_spmv
-    from manifold_gp_torch.utils import manifold_informed_train
+    from manifold_gp_torch.utils import constrained_values, manifold_informed_train
 
     camp = build_campaign(n=n, device=device, k=k, num_test=num_test,
-                          num_modes=num_modes, seed=seed, nu=nu, precond_type="jacobi")
+                          num_modes=num_modes, seed=seed, nu=nu, manifold=manifold,
+                          precond_type="jacobi")
+    k, num_modes = camp.model.kernel.nearest_neighbors, camp.model.kernel.num_modes
     model, timings = camp.model, camp.timings
     device = model.device
     on_card = device.type == "cuda"
     y = model.train_y
-
-    def counts():
-        return cuda_spmv.launch_count, cuda_spmv.bwd_launch_count
-
-    def since(before):
-        now = counts()
-        return {"spmv_launches": now[0] - before[0], "bwd_blocks_launches": now[1] - before[1]}
 
     params = model.init_params(**INITIAL_HYPERS)
     timings["cg_iters_initial"] = cg_iterations(model, params, y)
@@ -345,7 +415,7 @@ def train_campaign(n: int = 262_144, epochs: int = 3, device="cuda", k: int = 16
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     log = EpochLog()
-    before = counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     params, loss, history = manifold_informed_train(
         model, params, lr=lr, weight_decay=0.0, max_iter=epochs - 1, tolerance=1e-2,
@@ -353,30 +423,36 @@ def train_campaign(n: int = 262_144, epochs: int = 3, device="cuda", k: int = 16
     )
     _sync(device)
     timings["train_s"] = time.perf_counter() - t0
-    train_counts = since(before)
+    train_counts = launches_since(before)
     timings["s_per_epoch"] = float(np.median([r["seconds"] for r in log.rows]))
     timings["cg_iters_after_training"] = cg_iterations(model, params, y)
 
     # one gradient at the initial and one at the trained hyperparameters,
     # each with its own launch counts and time
+    if trained_hypers is None:
+        trained_hypers = (CAMPAIGN_HYPERS if manifold == "torus" else
+                          {key: value for key, value in constrained_values(model, params).items()
+                           if key != "mean_constant"})
     generator = torch.Generator(device=device).manual_seed(seed + 1)
     gradients = {}
     for label, hypers in (("initial", INITIAL_HYPERS), ("trained", trained_hypers)):
         p = model.init_params(**hypers)
-        before = counts()
+        before = launch_counts()
         _sync(device)
         t0 = time.perf_counter()
         value, grads = loss_and_grad(model, p, generator=generator)
         _sync(device)
         gradients[label] = {"loss": value, "grads": grads,
-                            "seconds": time.perf_counter() - t0, **since(before),
+                            "seconds": time.perf_counter() - t0, **launches_since(before),
                             "cg_iters": cg_iterations(model, p, y)}
 
     values = [v for g in gradients.values() for v in (g["loss"], *g["grads"].values())
               if v is not None]
     result = {
         **layout_record(camp, n, k, num_modes),
+        "manifold": manifold,
         "epochs": epochs,
+        "trained_hypers": trained_hypers,
         "precond_type": camp.cfg.precond_type,
         "history": history,
         "final_loss": loss,
@@ -393,8 +469,10 @@ def train_campaign(n: int = 262_144, epochs: int = 3, device="cuda", k: int = 16
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=262_144)
+    ap.add_argument("--manifold", choices=sorted(MANIFOLDS), default="torus")
     ap.add_argument("--num-test", type=int, default=2048)
-    ap.add_argument("--num-modes", type=int, default=100)
+    ap.add_argument("--num-modes", type=int, default=None,
+                    help="default: the manifold's (torus 100, curve 50)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     ap.add_argument("--train", action="store_true",
@@ -407,11 +485,12 @@ def main():
         result, _, _ = train_campaign(
             n=args.n, epochs=args.epochs, device=device, num_test=args.num_test,
             num_modes=args.num_modes, seed=args.seed, verbose=args.verbose,
+            manifold=args.manifold,
         )
     else:
         result, _, _ = serve_campaign(
             n=args.n, device=device, num_test=args.num_test,
-            num_modes=args.num_modes, seed=args.seed,
+            num_modes=args.num_modes, seed=args.seed, manifold=args.manifold,
         )
     print(json.dumps(result))
 

@@ -6,12 +6,15 @@ normalization flags; learnable state is the flat params dict
 ({'raw_graphbandwidth', 'raw_lengthscale'}). ``eval_basis`` solves the
 spectral basis: dense ``torch.linalg.eigh`` at or below ``eigh_max_size``,
 Chebyshev-filtered subspace iteration above it, every Laplacian apply of
-which goes through the block-ELL SpMV (the CUDA kernel on a card). Then the
-reference's post-processing: eigval[0] = 0, D^{-1/2} recovery, column L2
-normalization. ``precision_matvec`` / ``precision_diag`` are the Matérn
-precision operator that training solves with and its Jacobi diagonal.
+which goes through the fused SpMV of the kernel's layout (a CUDA kernel on a
+card), or, with ``eigensolver="host_f64"``, the float64 shift-invert solver
+on the host at any size. Then the reference's post-processing: eigval[0] =
+0, D^{-1/2} recovery, column L2 normalization. ``precision_matvec`` /
+``precision_diag`` are the Matérn precision operator that training solves
+with and its Jacobi diagonal. ``block_layout`` holds either layout of
+``ops.sparse_formats`` (block-ELL panels or DIA bands).
 
-Not ported yet: the mesh path and the LOBPCG and host-f64 basis solvers.
+Not ported yet: the mesh path and the LOBPCG basis solver.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, InferenceConfig, resolve_device
 from ..ops.bump import bump_function
-from ..ops.eigen import chebyshev_filtered_smallest
+from ..ops.eigen import chebyshev_filtered_smallest, host_f64_smallest
 from ..ops.graph import build_graph
 from ..ops.knn import NearestNeighbors
 from ..ops.laplacian import (
@@ -41,9 +44,9 @@ def _matrix_free_smallest(cfg, matvec, n_rows, m, bound, device):
     generator with seed 0."""
     if cfg.eigensolver != "chebyshev":
         raise NotImplementedError(
-            f"eigensolver={cfg.eigensolver!r} is not ported yet (LOBPCG and "
-            "host_f64: ROADMAP queue 1, 'Remaining basis solvers'); use "
-            "eigensolver='chebyshev' above eigh_max_size"
+            f"eigensolver={cfg.eigensolver!r} is not ported yet (LOBPCG: ROADMAP "
+            "queue 1, 'Remaining basis solvers'); use eigensolver='chebyshev' or "
+            "'host_f64' above eigh_max_size"
         )
     mb = min(m + max(8, m // 4), n_rows)
     generator = torch.Generator(device=device).manual_seed(0)
@@ -178,10 +181,7 @@ class RiemannKernel:
         """(eigval [m], eigvec [N, m]) of the graph Laplacian, with the
         reference's truncation and randomwalk-recovery post-processing."""
         if self.cfg.eigensolver == "host_f64":
-            raise NotImplementedError(
-                "eigensolver='host_f64' is not ported yet (ROADMAP queue 1, "
-                "'Remaining basis solvers')"
-            )
+            return self._eval_basis_host_f64(params)
         c = self.coeffs(params)
         n = self.graph.num_nodes
         m = min(self.num_modes, n)
@@ -206,6 +206,21 @@ class RiemannKernel:
         eigvec = eigvec * torch.rsqrt(c.deg)[:, None]
         eigvec = eigvec / torch.linalg.norm(eigvec, dim=0, keepdim=True)
         return eigval, eigvec
+
+    def _eval_basis_host_f64(self, params):
+        """The f64 shift-invert basis on the host (``host_f64_smallest``),
+        post-processed in f64 before one f32 cast onto the kernel's device."""
+        import numpy as np
+
+        gb = float(self.graphbandwidth(params))
+        m = min(self.num_modes, self.graph.num_nodes)
+        eigval, eigvec, deg = host_f64_smallest(self.graph, gb, m)
+        eigval = np.asarray(eigval).copy()
+        eigval[0] = 0.0
+        eigvec = np.asarray(eigvec) / np.sqrt(deg)[:, None]
+        eigvec = eigvec / np.linalg.norm(eigvec, axis=0, keepdims=True)
+        return (torch.as_tensor(eigval, dtype=torch.float32).to(self.device),
+                torch.as_tensor(eigvec, dtype=torch.float32).to(self.device))
 
     # -- spectral features -------------------------------------------------
     def _normalized_density(self, params, eigval, nystrom_correction: bool):

@@ -1,14 +1,16 @@
 """Block-ELL Laplacian SpMV on Hopper: the CUDA kernels that replace the
 Pallas kernels K1/K2 (forward) and K3 (panel cotangent) of
-``manifold_gp_tpu.ops.pallas_spmv``, and the autograd Functions around them.
+``manifold_gp_tpu.ops.pallas_spmv``, the autograd Functions around them, and
+the build of the port's one kernel library.
 
-The kernels (``csrc/block_ell_spmv.cu``, ``csrc/block_ell_bwd_blocks.cu``)
-are CUDA C++ compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a``
-(one ``nvcc -c`` per source, started together, then one link) into one
-shared library with a plain C interface and loaded with ``ctypes``, at first
-use, into ``manifold_gp_torch/build/`` (named by a hash of every source, so
-an edit to either rebuilds). Nothing is built or loaded when this module is
-imported.
+The kernels (``csrc/block_ell_spmv.cu``, ``csrc/block_ell_bwd_blocks.cu``,
+and ``csrc/dia_spmv.cu``, kernel K4, wrapped by ``ops.dia``) are CUDA C++
+compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a`` (one
+``nvcc -c`` per source, started together, then one link) into one shared
+library with a plain C interface and loaded with ``ctypes``, at first use,
+into ``manifold_gp_torch/build/`` (named by a hash of every source, so an
+edit to any of them rebuilds). Nothing is built or loaded when this module
+is imported.
 
 Dispatch: for CUDA tensors the wrappers launch the kernel or raise; for CPU
 tensors they run ``block_matvec_plain`` / ``bwd_blocks_plain``, the same
@@ -55,7 +57,8 @@ launch_count = 0
 bwd_launch_count = 0
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = (_CSRC / "block_ell_spmv.cu", _CSRC / "block_ell_bwd_blocks.cu")
+_SOURCES = (_CSRC / "block_ell_spmv.cu", _CSRC / "block_ell_bwd_blocks.cu",
+            _CSRC / "dia_spmv.cu")
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build"
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -139,6 +142,13 @@ def _load():
                 ctypes.c_void_p,
             ]
             bwd.restype = ctypes.c_int
+            dia = lib.dia_spmv  # K4, wrapped by ops.dia
+            dia.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            dia.restype = ctypes.c_int
             _lib = lib
     return _lib
 

@@ -1,0 +1,250 @@
+"""DIA (diagonal-offset) band SpMV for near-banded graphs (port of
+``manifold_gp_tpu.ops.dia``), and the wrapper of kernel K4.
+
+The RCM-reordered kNN graph of a densely sampled 1-D manifold is banded:
+every edge's column offset ``perm_col - perm_row`` falls in a small set of D
+distinct values. Instead of 128x128 panels this format stores one float per
+(row, offset):
+
+  band[i, d] = A[i, i + off_d]          (band: [Npd, BAND_WIDTH], D used lanes)
+  (A v)[i]   = sum_d band[i, d] * v[i + off_d]
+
+Layout contract (the JAX package's, so the tests compare the arrays):
+  * true row i lives at padded index TILE + i: one leading halo tile, then
+    the N rows, then a trailing pad, Npd a multiple of TILE;
+  * halo and pad rows carry zero band values and zero vector entries, so the
+    zero-padding subspace is invariant under the operator and whole CG/SLQ
+    solves run in this space with one permute_in/permute_out pair;
+  * ``offsets`` is a tuple of Python ints (sorted, includes 0);
+  * the band is stored BAND_WIDTH = 128 lanes wide whatever D is (a TPU DMA
+    constraint kept for equal layouts); the kernel reads only the D used
+    lanes.
+
+``dia_matvec_call`` launches the CUDA kernel K4 (``csrc/dia_spmv.cu``) for
+CUDA tensors and runs ``matvec_permuted`` (one ``torch.roll`` per offset)
+for CPU tensors; ``dia_launch_count`` counts the kernel's launches. The
+TPU's pad-the-batch-to-128 step does not carry over: the kernel masks a
+ragged batch. ``make_matvec_ad`` is the differentiable matvec: forward K4,
+``bar_pv = K4(band, g)`` (the operator is symmetric), ``bar_band`` in plain
+PyTorch, as the JAX package computes it in XLA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .graph import SparseGraph
+
+TILE = 512  # leading halo size; Npd is a multiple of it
+BAND_WIDTH = 128  # stored lanes per band row
+
+# Launches of K4 since the last reset (set to 0 to reset).
+dia_launch_count = 0
+
+_BAND_MODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class DiaLayout:
+    """Static DIA structure of a symmetric graph Laplacian (RCM-reordered).
+    Index tables are int64 for torch indexing."""
+
+    perm: torch.Tensor  # [Npd]: permuted_v[new] = v[perm[new]] (old index)
+    unperm: torch.Tensor  # [N]: out[old] = permuted_out[unperm[old]]
+    edge_flat: torch.Tensor  # [2M] flat index into [Npd * BAND_WIDTH] per directed edge
+    diag_flat: torch.Tensor  # [N] flat index of each node's diagonal (old order)
+    offsets: Tuple[int, ...]  # D diagonal offsets (sorted, includes 0)
+    num_nodes: int
+    num_padded: int  # Npd (halo tile + N + trailing pad, multiple of TILE)
+    halfwidth: int  # W = max |offset|
+
+    @property
+    def num_offsets(self) -> int:
+        return len(self.offsets)
+
+
+def build_dia_layout(graph: SparseGraph, max_offsets: int = 24,
+                     device=None) -> Optional[DiaLayout]:
+    """Host-side construction: RCM ordering + diagonal-offset structure, on
+    ``device`` (default: the graph's). Returns None when the reordered graph
+    has more than ``max_offsets`` distinct diagonals, a halfwidth above TILE,
+    or fewer than 2 * halfwidth nodes; callers then take block-ELL panels."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    device = graph.device if device is None else device
+    n = graph.num_nodes
+    r = graph.rows.cpu().numpy().astype(np.int64)
+    c = graph.cols.cpu().numpy().astype(np.int64)
+    rr = np.concatenate([r, c])
+    cc = np.concatenate([c, r])
+    adj = coo_matrix((np.ones(rr.shape[0], np.float32), (rr, cc)), shape=(n, n)).tocsr()
+    perm_old = np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=True), np.int64)
+    inv = np.empty(n, np.int64)
+    inv[perm_old] = np.arange(n)
+
+    pr, pc = inv[rr], inv[cc]
+    offs = np.unique(np.concatenate([pc - pr, np.zeros(1, np.int64)]))
+    w = int(np.max(np.abs(offs)))
+    if offs.size > min(max_offsets, BAND_WIDTH) or w > TILE or n < 2 * w:
+        return None
+    # one leading halo tile, the rows, and at least one trailing halo tile
+    npd = (-(-(TILE + n) // TILE) + 1) * TILE
+    edge_slots = np.searchsorted(offs, pc - pr)
+    edge_flat = (TILE + pr) * BAND_WIDTH + edge_slots
+    diag_flat = (TILE + inv) * BAND_WIDTH + int(np.searchsorted(offs, 0))
+    # halo/pad rows gather row 0 and are zeroed by permute_in
+    perm = np.zeros(npd, np.int64)
+    perm[TILE:TILE + n] = perm_old
+
+    def dev(a):
+        return torch.as_tensor(a).to(device=device, dtype=torch.int64)
+
+    return DiaLayout(
+        perm=dev(perm), unperm=dev(TILE + inv), edge_flat=dev(edge_flat),
+        diag_flat=dev(diag_flat), offsets=tuple(int(o) for o in offs),
+        num_nodes=n, num_padded=int(npd), halfwidth=w,
+    )
+
+
+def assemble(layout: DiaLayout, diag: torch.Tensor, triu: torch.Tensor, dtype=None):
+    """Scatter the Laplacian coefficients (L = diag - A_sym) into the band
+    buffer [Npd, BAND_WIDTH], in ``dtype`` (None: the coefficients' type;
+    float32 or bfloat16). Edge and diagonal slots are disjoint, so one
+    scatter-set places every value; scattering in the target type loses the
+    same bits as casting an f32 band."""
+    vals = torch.cat([-triu, -triu, diag])
+    idx = torch.cat([layout.edge_flat, layout.diag_flat])
+    buf_dtype = diag.dtype if dtype is None else dtype
+    flat = torch.zeros(layout.num_padded * BAND_WIDTH, dtype=buf_dtype, device=diag.device)
+    flat[idx] = vals.to(buf_dtype)
+    return flat.reshape(layout.num_padded, BAND_WIDTH)
+
+
+def permute_in(layout: DiaLayout, v: torch.Tensor) -> torch.Tensor:
+    """[N, B] original order -> [Npd, B] RCM order with zeroed halo/pad rows."""
+    pv = v[layout.perm]
+    pv[:TILE] = 0.0
+    pv[TILE + layout.num_nodes:] = 0.0
+    return pv
+
+
+def permute_out(layout: DiaLayout, pv: torch.Tensor) -> torch.Tensor:
+    """[Npd, B] RCM order -> [N, B] original order."""
+    return pv[layout.unperm]
+
+
+def matvec_permuted(layout: DiaLayout, band: torch.Tensor, pv: torch.Tensor):
+    """A @ pv in DIA space, one roll per diagonal: [Npd, B] -> [Npd, B]. The
+    plain version of K4. Wrapped reads land only on rows whose band is zero
+    (halo/pad), so they contribute nothing."""
+    out = torch.zeros_like(pv)
+    for j, off in enumerate(layout.offsets):
+        out = out + band[:, j:j + 1].to(pv.dtype) * torch.roll(pv, -off, dims=0)
+    return out
+
+
+def _check(layout: DiaLayout, band: torch.Tensor, pv: torch.Tensor):
+    npd = layout.num_padded
+    if band.dtype not in _BAND_MODES or tuple(band.shape) != (npd, BAND_WIDTH):
+        raise ValueError(f"dia_spmv: band must be float32/bfloat16 [{npd}, {BAND_WIDTH}], "
+                         f"got {band.dtype} {tuple(band.shape)}")
+    if pv.dtype != torch.float32 or pv.dim() != 2 or pv.shape[0] != npd:
+        raise ValueError(f"dia_spmv: operand must be float32 [{npd}, B], got "
+                         f"{pv.dtype} {tuple(pv.shape)}")
+    if pv.shape[1] <= 0:
+        raise ValueError("dia_spmv: empty batch")
+    if band.device != pv.device:
+        raise ValueError(f"dia_spmv: band on {band.device}, operand on {pv.device}")
+
+
+def dia_matvec_cuda(layout: DiaLayout, band: torch.Tensor, pv: torch.Tensor):
+    """Launch K4 on the current stream; raises on anything it does not take
+    or on a refused launch."""
+    global dia_launch_count
+    _check(layout, band, pv)
+    if pv.device.type != "cuda":
+        raise ValueError("dia_matvec_cuda: tensors must be on a CUDA device")
+    if not (band.is_contiguous() and pv.is_contiguous()):
+        raise ValueError("dia_matvec_cuda: band and operand must be contiguous")
+    from .cuda_spmv import _load
+
+    lib = _load()
+    d = layout.num_offsets
+    offsets = (ctypes.c_int * d)(*layout.offsets)
+    npd, batch = pv.shape
+    out = torch.empty((npd, batch), dtype=torch.float32, device=pv.device)
+    with torch.cuda.device(pv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dia_spmv(band.data_ptr(), pv.data_ptr(), out.data_ptr(), offsets, d,
+                           layout.halfwidth, npd, batch, BAND_WIDTH,
+                           _BAND_MODES[band.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"dia_spmv: launch failed with cudaError {err}")
+    dia_launch_count += 1
+    return out
+
+
+def dia_matvec_call(layout: DiaLayout, band: torch.Tensor, pv: torch.Tensor):
+    """Entry point of the JAX K4 kernel (``dia_matvec_pallas``): A @ pv in
+    DIA space, pv [Npd, B] f32 (any B) with zero halo/pad rows. The CUDA
+    kernel for CUDA tensors, ``matvec_permuted`` for CPU tensors."""
+    if pv.device.type == "cuda":
+        return dia_matvec_cuda(layout, band, pv)
+    if pv.device.type == "cpu":
+        _check(layout, band, pv)
+        return matvec_permuted(layout, band, pv)
+    raise ValueError(f"dia_spmv: unsupported device {pv.device}")
+
+
+def bar_band(layout: DiaLayout, g: torch.Tensor, pv: torch.Tensor, dtype) -> torch.Tensor:
+    """Band cotangent bar_band[i, d] = sum_b g[i, b] * pv[i + off_d, b] in
+    ``dtype`` [Npd, BAND_WIDTH]; the padding lanes never contribute, so
+    their cotangent is zero."""
+    out = torch.zeros((layout.num_padded, BAND_WIDTH), dtype=g.dtype, device=g.device)
+    for j, off in enumerate(layout.offsets):
+        out[:, j] = torch.sum(g * torch.roll(pv, -off, dims=0), dim=1)
+    return out.to(dtype)
+
+
+class _DiaMatvec(torch.autograd.Function):
+    """out = A(band) @ pv in DIA space; bar_pv = A g (both edge directions
+    and the diagonal live in the band, so A is symmetric)."""
+
+    @staticmethod
+    def forward(ctx, layout, band, pv):
+        pv = pv.contiguous()
+        ctx.layout = layout
+        ctx.save_for_backward(band, pv)
+        return dia_matvec_call(layout, band, pv)
+
+    @staticmethod
+    def backward(ctx, g):
+        band, pv = ctx.saved_tensors
+        layout = ctx.layout
+        g = g.to(pv.dtype).contiguous()
+        grad_band = grad_pv = None
+        if ctx.needs_input_grad[2]:
+            grad_pv = dia_matvec_call(layout, band, g)
+        if ctx.needs_input_grad[1]:
+            grad_band = bar_band(layout, g, pv, band.dtype)
+        return None, grad_band, grad_pv
+
+
+def make_matvec_ad(layout: DiaLayout):
+    """Differentiable DIA matvec ``mv(band, pv) -> A @ pv`` in DIA space."""
+
+    def mv(band, pv):
+        return _DiaMatvec.apply(layout, band, pv)
+
+    return mv
+
+
+def matvec(layout: DiaLayout, band: torch.Tensor, v: torch.Tensor):
+    """L_sym @ v in original node order through the kernel dispatch."""
+    return permute_out(layout, dia_matvec_call(layout, band, permute_in(layout, v).contiguous()))

@@ -9,8 +9,12 @@ iteration. Every operator apply is one ``matvec`` call, so on the block-ELL
 path each is one launch of the CUDA SpMV kernel (degree 256, 6 iterations:
 4 * 64 + 1 applies per iteration, plus 1 final, = 1,543 applies).
 
-LOBPCG (a wrapper of JAX's library solver), single-vector Lanczos and the
-host f64 shift-invert solver are not ported yet.
+``host_f64_smallest`` is the host-side float64 solver (scipy's ARPACK in
+shift-invert mode over a sparse LU): for spectral bands below the f32
+assembly noise floor, as on a 1-D curve at 262k points.
+
+LOBPCG (a wrapper of JAX's library solver) and single-vector Lanczos are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -94,3 +98,72 @@ def chebyshev_filtered_smallest(
         cut = torch.where(captured >= m_block, tightened, widened)
     vals, x = rayleigh_ritz(x)
     return vals[:m], x[:, :m]
+
+
+def host_f64_smallest(graph, graphbandwidth, num_modes: int, self_loops: bool = True):
+    """Exact float64 low eigenpairs of the symmetric diffusion-maps
+    Laplacian on the host (port of ``manifold_gp_tpu.ops.eigen.host_f64_smallest``).
+
+    Every f32 path assembles diag and off-diagonals with independent
+    roundings, so the cancellation that defines the low quadratic form
+    carries ~1e-7 lambda_max of noise; a 1-D curve's low band lies below it
+    at 262k points. This recomputes the coefficients of
+    ``ops.laplacian.laplacian_coeffs`` in f64 from the graph's stored edge
+    sqdists, assembles the sparse f64 L_sym and asks ARPACK for the
+    smallest ``num_modes`` pairs in shift-invert mode, with a fixed start
+    vector (reruns are bitwise identical).
+
+    Returns numpy arrays (eigval [m] f64 ascending, eigvec [N, m] f64 of the
+    symmetric form, deg [N] f64); the caller applies the randomwalk
+    recovery.
+    """
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    eps2 = float(graphbandwidth) ** 2
+    rows = graph.rows.cpu().numpy()
+    cols = graph.cols.cpu().numpy()
+    sqd = graph.sqdist.cpu().numpy().astype(np.float64)
+    mask = graph.mask.cpu().numpy().astype(np.float64)
+    n = int(graph.num_nodes)
+    m = int(min(num_modes, n))
+
+    w = np.exp(-sqd / (4.0 * eps2)) * mask
+    q = np.full(n, 1.0 if self_loops else 0.0)
+    np.add.at(q, rows, w)
+    np.add.at(q, cols, w)
+    adj = w / (q[rows] * q[cols])
+    deg = q**-2.0 if self_loops else np.zeros(n)
+    np.add.at(deg, rows, adj)
+    np.add.at(deg, cols, adj)
+    if self_loops:
+        diag = (1.0 - q**-2.0 / deg) / eps2
+    else:
+        diag = np.full(n, 1.0 / eps2)
+    dsq = np.sqrt(deg)
+    triu = adj / (dsq[rows] * dsq[cols]) / eps2
+
+    lap = (
+        sp.coo_matrix((diag, (np.arange(n), np.arange(n))), (n, n))
+        + sp.coo_matrix((-triu, (rows, cols)), (n, n))
+        + sp.coo_matrix((-triu, (cols, rows)), (n, n))
+    ).tocsc()
+
+    if m >= n - 1:
+        vals, vecs = np.linalg.eigh(lap.toarray())
+        return vals[:m], vecs[:, :m], deg
+    # sigma slightly below the spectrum: L_sym is PSD with lambda_0 ~ 0, so
+    # sigma = 0 risks a singular factorization; back off if it is.
+    scale = float(np.max(diag))
+    v0 = np.full(n, 1.0 / np.sqrt(n))
+    last_err = None
+    for sigma_frac in (1e-10, 1e-6, 1e-3):
+        try:
+            vals, vecs = spla.eigsh(lap, k=m, sigma=-sigma_frac * scale, which="LM",
+                                    mode="normal", v0=v0)
+            order = np.argsort(vals)
+            return vals[order], vecs[:, order], deg
+        except Exception as e:  # singular factorization: back off the shift
+            last_err = e
+    raise RuntimeError(f"host_f64 shift-invert eigsh failed: {last_err}")

@@ -10,8 +10,9 @@
 
 L_sym v = diag * v - A_sym v; randomwalk normalization conjugates by
 D^{+-1/2} (the transpose swaps the scalings). Execution paths with the same
-numerics: a pre-assembled dense L_sym, the RCM block-ELL layout (the CUDA
-kernel of ``ops.cuda_spmv`` or its plain version), or the ELL gather loop.
+numerics: a pre-assembled dense L_sym, an RCM layout of
+``ops.sparse_formats`` (block-ELL panels or DIA bands: a CUDA kernel or its
+plain version), or the ELL gather loop.
 Scatter-adds are ``index_add``; on CUDA their f32 sums run in atomic order.
 """
 
@@ -99,9 +100,10 @@ def laplacian_matvec(
 
     normalization='symmetric': L_sym v; 'randomwalk': D^{-1/2} L_sym D^{1/2} v
     (the transpose swaps the scalings). ``dense`` is a pre-assembled L_sym;
-    ``block`` a (BlockLayout, panels) pair from ``ops.block_sparse``, applied
-    by ``ops.cuda_spmv.matvec`` (the CUDA kernel for CUDA tensors, its plain
-    version for CPU tensors); default is the ELL gather loop."""
+    ``block`` a (layout, buffer) pair of ``ops.sparse_formats`` (block-ELL
+    panels or DIA bands), applied by ``sparse_formats.matvec`` (the CUDA
+    kernel for CUDA tensors, its plain version for CPU tensors); default is
+    the ELL gather loop."""
     squeeze = v.dim() == 1
     if squeeze:
         v = v[:, None]
@@ -111,9 +113,9 @@ def laplacian_matvec(
     else:
         vec = v
     if block is not None:
-        from . import cuda_spmv
+        from .sparse_formats import matvec as fused_matvec
 
-        out = cuda_spmv.matvec(block[0], block[1], vec)
+        out = fused_matvec(block[0], block[1], vec)
     elif dense is not None:
         out = dense @ vec
     else:

@@ -6,7 +6,8 @@
     normalization the output is post-multiplied by the degree to symmetrize.
     On the block-ELL path the recursion telescopes to
     Q = D^{1/2} (2nu/l^2 I + L_sym)^nu D^{1/2}: nu bare block matvecs with the
-    shift folded into the panel diagonal.
+    shift folded into the panel diagonal. "Block" means either layout of
+    ``ops.sparse_formats``: block-ELL panels or DIA bands.
   * Scale wrapper: multiplies (or divides, ``inverse_scale``) the matvec by a
     scalar. NOTE the training path wraps the precision with
     ``inverse_scale=False``, so "outputscale" multiplies the *precision*
@@ -183,7 +184,7 @@ def make_matern_precision_matvec_operand(layout, nu: int, normalization: str = "
     """Operand-explicit fused Matérn matvec: ``matvec(qblocks, dsq_p, pv)``
     over permuted padded-RCM vectors, with operands from
     :func:`matern_precision_operands`; differentiable in all three
-    (``ops.cuda_spmv.make_matvec_ad``)."""
+    (``ops.sparse_formats.make_matvec_ad``: panels or bands)."""
     _check_normalization(normalization)
     from .sparse_formats import make_matvec_ad
 

@@ -1,56 +1,34 @@
-"""Sparse-layout format dispatch (port of ``manifold_gp_tpu.ops.sparse_formats``).
+"""Sparse-layout format dispatch: block-ELL panels vs DIA bands (port of
+``manifold_gp_tpu.ops.sparse_formats``).
 
-The JAX package picks DIA bands when the RCM ordering is banded enough and
-128x128 block-ELL panels otherwise. The DIA format (kernel K4) is not ported
-yet, so ``build_layout`` raises whenever the JAX dispatch would have chosen
-it; with ``use_dia=False`` every call lands on block-ELL panels, and
-``matvec``, ``matvec_permuted`` and ``make_matvec_ad`` are those of
-``ops.cuda_spmv``.
+Two formats share one permuted-space calling convention: the layout is
+built once per graph, ``assemble`` once per coefficient change,
+``matvec_permuted`` in the solver loop, ``permute_in``/``permute_out`` at
+solve boundaries, ``make_matvec_ad`` for the differentiable matvec:
+
+  * ``ops.dia``          — diagonal-offset bands for banded RCM orderings
+                           (kernel K4, ``csrc/dia_spmv.cu``);
+  * ``ops.block_sparse`` — 128x128 panels for general graphs (kernels
+                           K1/K2 and K3 of ``ops.cuda_spmv``).
+
+``build_layout`` picks DIA whenever the reordered graph is banded enough, as
+the JAX package does; every function here dispatches on the layout type, so
+operator, kernel and model code is format-agnostic.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
-import numpy as np
-
-from . import block_sparse
-from .block_sparse import BlockLayout, assemble, permute_in, permute_out
-from .cuda_spmv import block_matvec as matvec_permuted
-from .cuda_spmv import make_matvec_ad, matvec
+from . import block_sparse, cuda_spmv, dia
+from .block_sparse import BlockLayout
+from .dia import DiaLayout
 from .graph import SparseGraph
 
-__all__ = ["build_layout", "assemble", "matvec", "matvec_permuted", "make_matvec_ad",
-           "permute_in", "permute_out"]
+Layout = Union[BlockLayout, DiaLayout]
 
-
-# DIA constants of the JAX package (ops/dia.py): rows per kernel tile and
-# the stored band width.
-_DIA_TILE = 512
-_DIA_BAND_WIDTH = 128
-
-
-def _dia_would_apply(graph: SparseGraph, max_offsets: int) -> bool:
-    """The condition under which the JAX ``build_dia_layout`` returns a
-    layout: at most min(max_offsets, 128) distinct diagonal offsets
-    (including 0) after RCM, a halfwidth within one 512-row tile, and
-    n >= 2 * halfwidth."""
-    from scipy.sparse import coo_matrix
-    from scipy.sparse.csgraph import reverse_cuthill_mckee
-
-    n = graph.num_nodes
-    r = graph.rows.cpu().numpy().astype(np.int64)
-    c = graph.cols.cpu().numpy().astype(np.int64)
-    rr = np.concatenate([r, c])
-    cc = np.concatenate([c, r])
-    adj = coo_matrix((np.ones(rr.shape[0], np.float32), (rr, cc)), shape=(n, n)).tocsr()
-    perm_old = np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=True), np.int64)
-    inv = np.empty(n, np.int64)
-    inv[perm_old] = np.arange(n)
-    offs = np.unique(np.concatenate([inv[cc] - inv[rr], np.zeros(1, np.int64)]))
-    w = int(np.max(np.abs(offs)))
-    return not (offs.size > min(max_offsets, _DIA_BAND_WIDTH) or w > _DIA_TILE
-                or n < 2 * w)
+__all__ = ["Layout", "build_layout", "assemble", "matvec", "matvec_permuted",
+           "make_matvec_ad", "permute_in", "permute_out"]
 
 
 def build_layout(
@@ -58,13 +36,54 @@ def build_layout(
     max_blocks_cap: int = 40,
     dia_max_offsets: int = 24,
     use_dia: bool = True,
-) -> Optional[BlockLayout]:
-    """RCM-reorder the graph into block-ELL panels (None when the graph is not
-    block-sparse enough). Raises where the JAX dispatch would pick DIA."""
-    if use_dia and _dia_would_apply(graph, dia_max_offsets):
-        raise NotImplementedError(
-            "build_layout: this graph takes the DIA band format in the JAX "
-            "package, which is not ported yet (kernel K4, ROADMAP queue 1, "
-            "'DIA bands'); pass use_dia=False for block-ELL panels"
-        )
+) -> Optional[Layout]:
+    """RCM-reorder the graph into DIA bands when it has at most
+    ``dia_max_offsets`` distinct diagonals (and ``use_dia``), else into
+    block-ELL panels; None when neither applies."""
+    if use_dia:
+        layout = dia.build_dia_layout(graph, max_offsets=dia_max_offsets)
+        if layout is not None:
+            return layout
     return block_sparse.build_block_layout(graph, max_blocks_cap=max_blocks_cap)
+
+
+def assemble(layout: Layout, diag, triu, dtype=None):
+    if isinstance(layout, DiaLayout):
+        # DIA products are plain f32 FMAs: the x3 split buys nothing, so
+        # "float32x3" keeps exact f32 bands, as in the JAX package.
+        return dia.assemble(layout, diag, triu, dtype=None if dtype == "float32x3" else dtype)
+    return block_sparse.assemble(layout, diag, triu, dtype=dtype)
+
+
+def matvec_permuted(layout: Layout, buf, pv):
+    """L_sym @ pv in permuted space through the layout's kernel dispatch."""
+    if isinstance(layout, DiaLayout):
+        return dia.dia_matvec_call(layout, buf, pv)
+    return cuda_spmv.block_matvec(layout, buf, pv)
+
+
+def permute_in(layout: Layout, v):
+    if isinstance(layout, DiaLayout):
+        return dia.permute_in(layout, v)
+    return block_sparse.permute_in(layout, v)
+
+
+def permute_out(layout: Layout, pv):
+    if isinstance(layout, DiaLayout):
+        return dia.permute_out(layout, pv)
+    return block_sparse.permute_out(layout, pv)
+
+
+def make_matvec_ad(layout: Layout):
+    """Differentiable ``mv(buf, pv)`` in permuted space: DIA bands (f32 or
+    bf16) or block-ELL panels (f32, bf16 or x3)."""
+    if isinstance(layout, DiaLayout):
+        return dia.make_matvec_ad(layout)
+    return cuda_spmv.make_matvec_ad(layout)
+
+
+def matvec(layout: Layout, buf, v):
+    """L_sym @ v in original node order (permute boundary included)."""
+    if isinstance(layout, DiaLayout):
+        return dia.matvec(layout, buf, v)
+    return cuda_spmv.matvec(layout, buf, v)

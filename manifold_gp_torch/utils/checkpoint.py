@@ -18,6 +18,8 @@ import pathlib
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
 _SCALARS = ("epoch", "lr", "sched_best", "sched_num_bad", "sched_cooldown")
 
 
@@ -31,7 +33,9 @@ def save_params(params: dict, path):
     np.savez(path, **{k: _np(v) for k, v in params.items()})
 
 
-def load_params(path, device="cpu") -> dict:
+def load_params(path, device="cuda") -> dict:
+    """The params dict saved by ``save_params``, as tensors on ``device``."""
+    device = resolve_device(device)
     with np.load(path) as d:
         return {k: torch.tensor(d[k], device=device) for k in d.files}
 
@@ -61,10 +65,11 @@ def save_training_state(path, params, opt_state, epoch: int, lr, sched_state,
     tmp.replace(path)
 
 
-def load_training_state(path, device="cpu"):
+def load_training_state(path, device="cuda"):
     """The state saved by ``save_training_state`` as a dict (``params`` and
     ``opt_state`` as tensors on ``device``, generator states as CPU byte
     tensors or None), or None when the file does not exist."""
+    device = resolve_device(device)
     path = pathlib.Path(path)
     if not path.exists():
         return None

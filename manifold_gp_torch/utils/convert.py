@@ -16,10 +16,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import resolve_device
 
-def params_from_jax(params_np: dict, device="cpu") -> dict:
+
+def params_from_jax(params_np: dict, device="cuda") -> dict:
     """{name: numpy array} (e.g. ``{k: np.asarray(v) for k, v in jax_params.items()}``)
     -> {name: float32 tensor on ``device``}."""
+    device = resolve_device(device)
     return {
         k: torch.tensor(np.asarray(v, np.float32), device=device)
         for k, v in params_np.items()

@@ -180,17 +180,27 @@ def test_wrapper_rejects_out_of_range_and_empty(problem):
         dataclasses.replace(tl, block_col=stale)
 
 
-def test_build_layout_raises_where_jax_picks_dia():
-    # a ring graph is banded: the JAX dispatch returns a DIA layout for it
-    # (jittered: equally spaced points tie their two neighbour distances)
+def test_build_layout_picks_the_layout_jax_picks():
+    """DIA bands for a banded graph (a ring; jittered: equally spaced points
+    tie their two neighbour distances), with arrays equal to JAX's;
+    block-ELL panels for the same graph with use_dia=False, and for a torus
+    sample, whose RCM band is too wide for DIA."""
     from manifold_gp_tpu.ops import sparse_formats as jsf
+    from manifold_gp_torch.ops.dia import DiaLayout
 
     t = np.linspace(0, 2 * np.pi, 1500, endpoint=False)
     x = np.stack([np.cos(t), np.sin(t)], 1).astype(np.float32)
     x += 1e-3 * np.random.default_rng(0).standard_normal(x.shape).astype(np.float32)
     jg = jgraph.build_graph(x, 4)
-    assert type(jsf.build_layout(jg)).__name__ == "DiaLayout"
     tg = tgraph.build_graph(x, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="DIA"):
-        tsf.build_layout(tg)
+    jl, tl = jsf.build_layout(jg), tsf.build_layout(tg)
+    assert type(jl).__name__ == "DiaLayout" and isinstance(tl, DiaLayout)
+    assert tl.offsets == jl.offsets and tl.num_padded == jl.num_padded
+    for name in ("perm", "unperm", "edge_flat", "diag_flat"):
+        np.testing.assert_array_equal(getattr(tl, name).numpy(), np.asarray(getattr(jl, name)))
     _assert_layouts_equal(jsf.build_layout(jg, use_dia=False), tsf.build_layout(tg, use_dia=False))
+    xt, _, _ = torus_points(3000, seed=2)
+    jlt = jsf.build_layout(jgraph.build_graph(xt, 16))
+    tlt = tsf.build_layout(tgraph.build_graph(xt, 16, device="cpu"))
+    assert type(jlt).__name__ == "BlockLayout" and isinstance(tlt, tbs.BlockLayout)
+    _assert_layouts_equal(jlt, tlt)

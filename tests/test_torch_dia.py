@@ -1,0 +1,248 @@
+"""Port vs JAX: the DIA band format (layout, assembly, the plain version of
+kernel K4 and its autograd Function) and the training loss on a DIA layout.
+
+The banded problem is ``tests/test_dia.py``'s: a k = 8 ring graph over a
+noisy closed 3-D curve, built through both packages' ``graph_from_edges``
+from the same numpy edges. Layout arrays and assembled bands must be EQUAL
+(same RCM order, same slots, same scatter). Matvecs agree to f32 sum order:
+one rounding per diagonal on both sides, in another order, so 1e-5 of
+max|.| (values reach ~1e3: diag ~ 1/eps^2). The JAX side runs as its own
+tests run it: ``matvec_permuted`` (XLA rolls) or ``dia_matvec_pallas`` in
+interpret mode.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from _torch_data import one_torch_thread  # noqa: F401  (autouse, module scope)
+import manifold_gp_tpu as J
+import manifold_gp_torch as T
+from examples_torch.run_large import curve_points
+from manifold_gp_tpu.ops import dia as jdia
+from manifold_gp_tpu.ops import engine as jengine
+from manifold_gp_tpu.ops import graph as jgraph
+from manifold_gp_tpu.ops import laplacian as jlap
+from manifold_gp_tpu.ops import sparse_formats as jsf
+from manifold_gp_torch.ops import dia as tdia
+from manifold_gp_torch.ops import graph as tgraph
+from manifold_gp_torch.ops import sparse_formats as tsf
+
+TOL = 1e-5  # of max |expected|: f32 sum order
+
+
+def _banded_edges(n=1500, k=8, seed=0):
+    """tests/test_dia.py::banded_curve_graph's edges, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 2 * np.pi, n, endpoint=False)
+    x = np.stack([np.cos(t), np.sin(t), 0.3 * np.sin(2 * t)], axis=1).astype(np.float32)
+    x += (0.1 / n) * rng.standard_normal(x.shape).astype(np.float32)
+    half = max(1, k // 2)
+    rows = np.repeat(np.arange(n, dtype=np.int64), half)
+    cols = (rows + np.tile(np.arange(1, half + 1, dtype=np.int64), n)) % n
+    d = x[rows] - x[cols]
+    sqd = np.einsum("ij,ij->i", d, d).astype(np.float32)
+    return np.minimum(rows, cols), np.maximum(rows, cols), sqd, n
+
+
+@pytest.fixture(scope="module")
+def problem():
+    r, c, sqd, n = _banded_edges()
+    jg = jgraph.graph_from_edges(r, c, sqd, n)
+    tg = tgraph.graph_from_edges(r, c, sqd, n, device="cpu")
+    jc = jlap.laplacian_coeffs(jg, 0.05)
+    jl = jdia.build_dia_layout(jg)
+    tl = tdia.build_dia_layout(tg)
+    assert jl is not None and tl is not None
+    diag, triu = np.array(jc.diag), np.array(jc.triu)
+    lap = (sp.diags(diag.astype(np.float64))
+           - sp.coo_matrix((triu.astype(np.float64), (r, c)), (n, n))
+           - sp.coo_matrix((triu.astype(np.float64), (c, r)), (n, n))).tocsr()
+    return jl, tl, diag, triu, lap
+
+
+def _v(rows, batch, seed):
+    return np.random.default_rng(seed).standard_normal((rows, batch)).astype(np.float32)
+
+
+def test_layout_equal_to_jax(problem):
+    jl, tl, *_ = problem
+    for name in ("offsets", "num_nodes", "num_padded", "halfwidth", "num_offsets"):
+        assert getattr(tl, name) == getattr(jl, name), name
+    for name in ("perm", "unperm", "edge_flat", "diag_flat"):
+        np.testing.assert_array_equal(getattr(tl, name).numpy(), np.asarray(getattr(jl, name)),
+                                      err_msg=name)
+    assert (tdia.TILE, tdia.BAND_WIDTH) == (jdia.TILE, jdia.BAND_WIDTH)
+    assert all(isinstance(o, int) for o in tl.offsets)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_assemble_equal_to_jax(problem, dtype):
+    jl, tl, diag, triu, _ = problem
+    jb = jdia.assemble(jl, jnp.asarray(diag), jnp.asarray(triu),
+                       dtype=None if dtype == "float32" else jnp.bfloat16)
+    tb = tdia.assemble(tl, torch.from_numpy(diag), torch.from_numpy(triu),
+                       dtype=None if dtype == "float32" else torch.bfloat16)
+    assert tuple(tb.shape) == (tl.num_padded, tdia.BAND_WIDTH)
+    assert str(tb.dtype) == f"torch.{dtype}"
+    np.testing.assert_array_equal(tb.float().numpy(), np.asarray(jb, np.float32))
+    # through the dispatcher, x3 keeps exact f32 bands as in JAX
+    np.testing.assert_array_equal(
+        tsf.assemble(tl, torch.from_numpy(diag), torch.from_numpy(triu), "float32x3").numpy(),
+        np.asarray(jsf.assemble(jl, jnp.asarray(diag), jnp.asarray(triu), "float32x3")))
+
+
+@pytest.mark.parametrize("band_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 37])
+def test_matvec_matches_jax_and_coo(problem, band_dtype, batch):
+    jl, tl, diag, triu, lap = problem
+    tdt = None if band_dtype == "float32" else torch.bfloat16
+    jdt = None if band_dtype == "float32" else jnp.bfloat16
+    tb = tdia.assemble(tl, torch.from_numpy(diag), torch.from_numpy(triu), dtype=tdt)
+    jb = jdia.assemble(jl, jnp.asarray(diag), jnp.asarray(triu), dtype=jdt)
+    v = _v(tl.num_nodes, batch, seed=batch)
+    tpv = tdia.permute_in(tl, torch.from_numpy(v))
+    jpv = jdia.permute_in(jl, jnp.asarray(v))
+    np.testing.assert_array_equal(tpv.numpy(), np.asarray(jpv))
+    want = np.asarray(jdia.matvec_permuted(jl, jb, jpv))
+    scale = np.abs(want).max()
+    tdia.dia_launch_count = 0
+    for got in (tdia.matvec_permuted(tl, tb, tpv), tdia.dia_matvec_call(tl, tb, tpv),
+                tsf.matvec_permuted(tl, tb, tpv)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL * scale)
+    assert tdia.dia_launch_count == 0  # CPU tensors: the plain version ran
+    # both against the COO oracle in f64 (on the band's own values)
+    if band_dtype == "float32":
+        oracle = lap @ v.astype(np.float64)
+        got = tsf.matvec(tl, tb, torch.from_numpy(v)).numpy()
+        np.testing.assert_allclose(got, oracle, rtol=0, atol=TOL * np.abs(oracle).max())
+        np.testing.assert_allclose(np.asarray(jdia.permute_out(jl, jnp.asarray(want))), oracle,
+                                   rtol=0, atol=TOL * np.abs(oracle).max())
+
+
+def test_matvec_matches_jax_pallas_interpret(problem):
+    """The JAX kernel itself (interpret mode; its batch is a multiple of 128)."""
+    jl, tl, diag, triu, _ = problem
+    tb = tdia.assemble(tl, torch.from_numpy(diag), torch.from_numpy(triu))
+    jb = jdia.assemble(jl, jnp.asarray(diag), jnp.asarray(triu))
+    v = _v(tl.num_nodes, 128, seed=5)
+    want = np.asarray(jdia.dia_matvec_pallas(jl, jb, jdia.permute_in(jl, jnp.asarray(v)),
+                                             interpret=True))
+    got = tdia.dia_matvec_call(tl, tb, tdia.permute_in(tl, torch.from_numpy(v)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("band_dtype", ["float32", "bfloat16"])
+def test_matvec_ad_forward_and_vjp_match_jax(problem, band_dtype):
+    """Forward, bar_band and bar_pv of ``make_matvec_ad`` against jax.grad
+    through the JAX matvec; and the gradient through ``assemble`` back to
+    (diag, triu), the transpose of the scatter."""
+    jl, tl, diag, triu, _ = problem
+    tdt = None if band_dtype == "float32" else torch.bfloat16
+    jdt = None if band_dtype == "float32" else jnp.bfloat16
+    v = _v(tl.num_nodes, 16, seed=11)
+    cot = _v(tl.num_padded, 16, seed=12)
+    cot[:tdia.TILE] = 0.0  # cotangents of halo/pad rows are zero on the solver path
+    cot[tdia.TILE + tl.num_nodes:] = 0.0
+
+    def jloss(d, t, pv):
+        return jnp.sum(jdia.matvec_permuted(jl, jdia.assemble(jl, d, t, dtype=jdt), pv)
+                       * jnp.asarray(cot))
+
+    jpv = jdia.permute_in(jl, jnp.asarray(v))
+    jfwd = np.asarray(jdia.matvec_permuted(jl, jdia.assemble(jl, jnp.asarray(diag),
+                                                             jnp.asarray(triu), dtype=jdt), jpv))
+    jgd, jgt, jgp = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(diag), jnp.asarray(triu), jpv)
+    jband = jdia.assemble(jl, jnp.asarray(diag), jnp.asarray(triu), dtype=jdt)
+    jgb = jax.grad(lambda b: jnp.sum(jdia.matvec_permuted(jl, b, jpv) * jnp.asarray(cot)))(jband)
+
+    td = torch.from_numpy(diag).requires_grad_(True)
+    tt = torch.from_numpy(triu).requires_grad_(True)
+    tpv = tdia.permute_in(tl, torch.from_numpy(v)).requires_grad_(True)
+    tband = tdia.assemble(tl, td, tt, dtype=tdt)
+    tband.retain_grad()
+    out = tsf.make_matvec_ad(tl)(tband, tpv)
+    np.testing.assert_allclose(out.detach().numpy(), jfwd, rtol=0,
+                               atol=TOL * np.abs(jfwd).max())
+    torch.sum(out * torch.from_numpy(cot)).backward()
+    for name, got, want in (("bar_band", tband.grad.float(), np.asarray(jgb, np.float32)),
+                            ("bar_pv", tpv.grad, jgp), ("bar_diag", td.grad, jgd),
+                            ("bar_triu", tt.grad, jgt)):
+        want = np.asarray(want, np.float32)
+        tol = TOL if band_dtype == "float32" else 2.0 ** -7  # one bf16 rounding apart
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol * np.abs(want).max(),
+                                   err_msg=name)
+    assert not tband.grad.float()[:, tl.num_offsets:].any()  # padding lanes
+
+
+def test_unbanded_cloud_gets_no_dia_layout():
+    rng = np.random.default_rng(7)
+    centers = rng.standard_normal((4, 8)).astype(np.float32) * 3
+    x = centers[rng.integers(0, 4, 600)] + 0.2 * rng.standard_normal((600, 8)).astype(np.float32)
+    assert jdia.build_dia_layout(jgraph.build_graph(x, 8), max_offsets=16) is None
+    assert tdia.build_dia_layout(tgraph.build_graph(x, 8, device="cpu"), max_offsets=16) is None
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(problem):
+    _, tl, diag, triu, _ = problem
+    band = tdia.assemble(tl, torch.from_numpy(diag), torch.from_numpy(triu))
+    pv = torch.zeros(tl.num_padded, 4)
+    before = tdia.dia_launch_count
+    with pytest.raises(ValueError, match="band"):
+        tdia.dia_matvec_call(tl, band[:, :64].contiguous(), pv)
+    with pytest.raises(ValueError, match="band"):
+        tdia.dia_matvec_call(tl, band.double(), pv)
+    with pytest.raises(ValueError, match="operand"):
+        tdia.dia_matvec_call(tl, band, torch.zeros(tl.num_padded + 512, 4))
+    with pytest.raises(ValueError, match="empty"):
+        tdia.dia_matvec_call(tl, band, torch.zeros(tl.num_padded, 0))
+    with pytest.raises(ValueError, match="CUDA"):
+        tdia.dia_matvec_cuda(tl, band, pv)
+    assert tdia.dia_launch_count == before  # counted only where K4 launches
+
+
+# -- the training loss on a DIA layout --------------------------------------
+
+RAW = ("raw_graphbandwidth", "raw_lengthscale", "raw_noise", "raw_outputscale")
+INIT = dict(noise=1e-2, outputscale=1.0, graphbandwidth=1.0, lengthscale=1.0)
+
+
+def test_mll_loss_on_dia_matches_jax(monkeypatch):
+    """The curve campaign's training configuration (DIA bands, f32, panel
+    cotangents, Jacobi) at N = 5,000, k = 8, with shared probes: the twin of
+    test_torch_train.py::test_mll_loss_slq_branch_matches_jax on DIA. The
+    coordinates are rescaled to unit graph bandwidth, as in the campaign."""
+    n = 5000
+    x, t = curve_points(n, seed=0)
+    y = (np.sin(3 * t) + 0.5 * np.sin(7 * t)
+         + 0.1 * np.random.default_rng(0).standard_normal(n)).astype(np.float32)
+    y = (y - y.mean()) / y.std(ddof=1)
+    x = x / (2.0 * float(np.sqrt(np.median(np.asarray(jgraph.build_graph(x, 8).sqdist)))))
+    kw = dict(max_cholesky=0, dense_operator_max_size=0, num_probes=8, lanczos_max_iter=12,
+              cg_tolerance=1e-6, cg_max_iter=400, precond_type="jacobi",
+              spmv_dtype="float32", solve_cotangent="panel", use_dia=True)
+    jc, tc = J.InferenceConfig(**kw), T.InferenceConfig(**kw)
+    common = dict(nu=2, x=x, nearest_neighbors=8, laplacian_normalization="randomwalk")
+    jk = J.RiemannMaternKernel(cfg=jc, **common)
+    tk = T.RiemannMaternKernel(cfg=tc, device="cpu", **common)
+    assert isinstance(jk.block_layout, jdia.DiaLayout)
+    assert isinstance(tk.block_layout, tdia.DiaLayout)
+    assert tk.block_layout.offsets == jk.block_layout.offsets
+    jm, tm = J.RiemannGP(x, jnp.asarray(y), jk, cfg=jc), T.RiemannGP(x, y, tk, cfg=tc)
+
+    probes = (2 * np.random.default_rng(1).integers(0, 2, (n, 8)) - 1).astype(np.float32)
+    monkeypatch.setattr(jengine, "rademacher_probes", lambda key, n_, p_: jnp.asarray(probes))
+    jl, jg = jax.value_and_grad(lambda p: jm.mll_loss(p, key=jax.random.PRNGKey(0)))(
+        jm.init_params(**INIT))
+    tp = {k: v.requires_grad_(True) for k, v in tm.init_params(**INIT).items()}
+    tdia.dia_launch_count = 0
+    tl = tm.mll_loss(tp, probes=torch.from_numpy(probes))
+    tg = torch.autograd.grad(tl, [tp[k] for k in RAW])
+    assert tdia.dia_launch_count == 0
+    jg = np.array([float(jg[k]) for k in RAW])
+    tg = np.array([float(g) for g in tg])
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-4)
+    np.testing.assert_allclose(tg, jg, rtol=0, atol=5e-3 * np.abs(jg).max())

@@ -33,12 +33,13 @@ def test_import_leaves_no_jax_in_sys_modules():
         "'manifold_gp_torch.')]\n"
         "for name in names + ['examples_torch.run_large']: importlib.import_module(name)\n"
         "need = {'manifold_gp_torch.ops.' + m for m in ('matern', 'cg', 'slq', 'engine', "
-        "'pivchol', 'operator')} | {'manifold_gp_torch.priors', "
+        "'pivchol', 'operator', 'dia', 'sparse_formats')} | {'manifold_gp_torch.priors', "
         "'manifold_gp_torch.utils.train', 'manifold_gp_torch.utils.checkpoint'}\n"
         "assert need <= set(names), need - set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
-        "from manifold_gp_torch.ops import cuda_spmv\n"
+        "from manifold_gp_torch.ops import cuda_spmv, dia\n"
         "assert cuda_spmv._lib is None and cuda_spmv.build_log == ''\n"
+        "assert dia.dia_launch_count == 0\n"
         "after = sorted(build.glob('*')) if build.exists() else None\n"
         "assert before == after, (before, after)\n"
         "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN + ("triton",),)
@@ -96,6 +97,21 @@ def test_cpu_bwd_wrapper_runs_plain_version_without_launching():
     cb = pv.reshape(2, 128, 3)[bc.long()].reshape(2, 256, 3)
     want = torch.bmm(g.reshape(2, 128, 3), cb.transpose(1, 2))
     np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_loaders_default_to_the_card(monkeypatch, tmp_path):
+    """Every entry point that makes tensors defaults to CUDA and raises
+    without a card; the CPU must be asked for."""
+    from manifold_gp_torch.utils import load_params, load_training_state, params_from_jax
+
+    np.savez(tmp_path / "p.npz", raw_noise=np.float32(0.1))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: load_params(tmp_path / "p.npz"),
+                 lambda: load_training_state(tmp_path / "p.npz"),
+                 lambda: params_from_jax({"raw_noise": np.float32(0.1)})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert load_params(tmp_path / "p.npz", device="cpu")["raw_noise"].device.type == "cpu"
 
 
 def test_kernel_library_hash_covers_every_source():

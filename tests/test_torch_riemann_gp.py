@@ -145,7 +145,63 @@ def test_unported_paths_raise():
         tmgp.RiemannGP(x_tr, y_tr, kernel, labeled=np.ones(len(y_tr), bool))
     with pytest.raises(NotImplementedError, match="LOVE"):
         model.eval(p, love_rank=5)
-    with pytest.raises(NotImplementedError):
-        tmgp.RiemannMaternKernel(nu=2, x=x_tr, nearest_neighbors=8, num_modes=10,
-                                 cfg=cfg.replace(eigensolver="host_f64"),
-                                 device="cpu").eval_basis(p)
+
+
+def _subspace_distance(a, b):
+    """sin of the largest principal angle between the column spans."""
+    qa, _ = np.linalg.qr(a.astype(np.float64))
+    qb, _ = np.linalg.qr(b.astype(np.float64))
+    s = np.linalg.svd(qa.T @ qb, compute_uv=False)
+    return float(np.sqrt(max(0.0, 1.0 - s.min() ** 2)))
+
+
+def test_host_f64_basis_matches_jax():
+    """eigensolver="host_f64" (the curve campaign's basis) on a 3,000-point
+    k = 8 curve, the graph shared edge for edge: both packages run the same
+    f64 scipy solve on the same sqdists, so eigenvalues agree to 1e-8 and
+    the 11-mode subspaces (whole pairs of the closed curve's spectrum) to
+    1e-6; then the served posterior and metrics at RTOL."""
+    from examples_torch.run_large import curve_points
+    from manifold_gp_tpu.ops.graph import graph_from_edges as jgraph_from_edges
+    from manifold_gp_torch.ops.dia import DiaLayout
+    from manifold_gp_torch.ops.graph import graph_from_edges
+
+    n, num_test = 3256, 256
+    rng = np.random.default_rng(0)
+    x, t = curve_points(n, seed=0)
+    y = (np.sin(3 * t) + 0.5 * np.sin(7 * t) + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    perm = rng.permutation(n)
+    te, tr = perm[:num_test], np.sort(perm[num_test:])
+    jg = jbuild_graph(x[tr], 8)
+    eps = 2.0 * float(np.sqrt(np.median(np.asarray(jg.sqdist))))
+    x_tr, x_te = x[tr] / eps, x[te] / eps
+    sq = np.asarray(jg.sqdist) / np.float32(eps) ** 2
+    jg = jgraph_from_edges(np.asarray(jg.rows), np.asarray(jg.cols), sq, len(tr))
+    tg = graph_from_edges(np.asarray(jg.rows), np.asarray(jg.cols), sq, len(tr), device="cpu")
+    mu, sd = y[tr].mean(), y[tr].std(ddof=1)
+    y_tr, y_te = (y[tr] - mu) / sd, (y[te] - mu) / sd
+    out = {}
+    for name, pkg, graph, extra in (("jax", jmgp, jg, {}), ("torch", tmgp, tg, {"device": "cpu"})):
+        cfg = pkg.InferenceConfig(dense_operator_max_size=0, eigh_max_size=0,
+                                  eigensolver="host_f64", use_dia=True)
+        kernel = pkg.RiemannMaternKernel(
+            nu=2, x=x_tr, nearest_neighbors=8, laplacian_normalization="randomwalk",
+            num_modes=11, bump_scale=10.0, cfg=cfg, graph=graph, **extra)
+        out[name] = (kernel, pkg.RiemannGP(x_tr, y_tr, kernel, cfg=cfg))
+    (jk, jm), (tk, tm) = out["jax"], out["torch"]
+    assert isinstance(tk.block_layout, DiaLayout)
+    hypers = dict(noise=0.003473, outputscale=1.9376, graphbandwidth=0.2325, lengthscale=3.0813)
+    jp = jm.init_params(**hypers)
+    tp = params_from_jax({k: np.asarray(v) for k, v in jp.items()}, "cpu")
+    jb, tb = jk.eval_basis(jp), tk.eval_basis(tp)
+    assert tb[0].device.type == "cpu" and tb[0].dtype == torch.float32
+    jvals, tvals = np.asarray(jb[0]), tb[0].numpy()
+    assert tvals[0] == 0.0
+    np.testing.assert_allclose(tvals[1:], jvals[1:], rtol=1e-8)
+    assert _subspace_distance(tb[1].numpy(), np.asarray(jb[1])) <= 1e-6
+    jk.eval_basis = lambda p: jb
+    tk.eval_basis = lambda p: tb
+    jr, jn = jax_test_model(jm, jp, x_te, y_te, noisy_test=True)
+    tr_, tn = torch_test_model(tm, tp, x_te, y_te, noisy_test=True)
+    assert tr_ == pytest.approx(jr, rel=RTOL)
+    assert tn == pytest.approx(jn, rel=RTOL)

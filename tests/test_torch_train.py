@@ -196,7 +196,7 @@ def test_training_trajectory_matches_jax():
     jp, jloss, jhist = jtrain.manifold_informed_train(
         jm, jm.init_params(**INIT), scheduler=jtrain.ReduceLROnPlateau(**sched),
         metrics=jrec, chunk_size=1, **kw)
-    tp0 = params_from_jax({k: np.asarray(v) for k, v in jm.init_params(**INIT).items()})
+    tp0 = params_from_jax({k: np.asarray(v) for k, v in jm.init_params(**INIT).items()}, "cpu")
     tp, tloss, thist = manifold_informed_train(
         tm, tp0, scheduler=ReduceLROnPlateau(**sched), metrics=trec,
         probes_fn=lambda e: probes[e], idx_fn=lambda e: idx[e], **kw)
@@ -243,7 +243,7 @@ def test_checkpoint_resume_reproduces_the_uninterrupted_run(tmp_path):
     with pytest.raises(Interrupt):
         manifold_informed_train(tm, tm.init_params(**INIT), metrics=StopAt(),
                                 checkpoint_path=ckpt, checkpoint_every=2, **kw)
-    state = load_training_state(ckpt)
+    state = load_training_state(ckpt, device="cpu")
     assert state["epoch"] == 4 and set(state["opt_state"]) == set(tm.init_params())
     assert state["generator_state"] is not None and state["callback_generator_state"] is not None
     resumed = _Recorder()
@@ -256,7 +256,7 @@ def test_checkpoint_resume_reproduces_the_uninterrupted_run(tmp_path):
     assert [r["lr"] for r in resumed.rows] == [r["lr"] for r in full.rows[4:]]
     for k, v in params_to_numpy(p_full).items():
         np.testing.assert_allclose(params_to_numpy(p_res)[k], v, rtol=1e-6, atol=1e-7, err_msg=k)
-    assert load_training_state(tmp_path / "missing.npz") is None
+    assert load_training_state(tmp_path / "missing.npz", device="cpu") is None
     # resume=False ignores the file and starts over
     fresh = _Recorder()
     manifold_informed_train(tm, tm.init_params(**INIT), metrics=fresh, checkpoint_path=ckpt,
@@ -285,7 +285,7 @@ def test_params_roundtrip_through_files_and_constraints(tmp_path):
     jm, tm = _models(300, max_cholesky=0)
     p = tm.init_params(noise=0.02, outputscale=1.5, graphbandwidth=0.3, lengthscale=2.0)
     save_params(p, tmp_path / "p.npz")
-    back = load_params(tmp_path / "p.npz")
+    back = load_params(tmp_path / "p.npz", device="cpu")
     assert set(back) == set(p) and all(torch.equal(back[k], p[k]) for k in p)
     # raw values carry over unchanged between models with the same constraints
     jp = jm.init_params(noise=0.02, outputscale=1.5, graphbandwidth=0.3, lengthscale=2.0)
