@@ -6,9 +6,12 @@
 Phases (any failure exits non-zero before the result line is printed):
   1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
      build of the three kernels from csrc/ with nvcc (timed);
-  2. kernels vs plain at a small layout (10,240-point torus; B = 1, 37, 128):
-     the forward SpMV with f32, bf16 and x3 panels through both entry points
-     (resident/stream); the panel-cotangent kernel with f32 and bf16 output;
+  2. kernels vs plain at a small layout (10,240-point torus): the forward
+     SpMV with f32, bf16 and x3 panels through both entry points
+     (resident/stream) at B = 1, 7, 8, 9, 37, 48, 64, 100, 125, 128, 129 and
+     200 (every batch-tile template, each tile border, a second batch
+     tile); the panel-cotangent kernel with f32 and bf16 output at B = 1,
+     37, 128;
   2c. the DIA band kernel K4 vs plain at small DIA layouts (1,500- and
      10,240-point k = 8 curves; B = 1, 37, 128; f32 and bf16 bands) through
      dia_matvec_call and through make_matvec_ad's forward and bar_pv;
@@ -18,14 +21,16 @@ Phases (any failure exits non-zero before the result line is printed):
      launches, finite outputs and RMSE vs truth below half the label-noise
      floor;
   4. kernels vs plain at the main paths' own shapes (the served layout), with
-     times: kernel (CUDA events, median), plain version, library yardstick
+     times: kernel (CUDA events around 10 back-to-back launches, median of
+     5), plain version, library yardstick
      (one torch.bmm over the pre-gathered operand, used nowhere in the port)
      and the bound (bytes or operations at the card's published peaks). The
      forward kernel at B = 125 (the basis solve's width; f32, bf16 and x3
-     panels) and at B = 1 and B = 48 with bf16 panels (the widths and panel
-     type of one training gradient) through cuda_spmv.block_matvec; the
-     panel-cotangent kernel at B = 1 and B = 48 through
-     cuda_spmv.block_bwd_blocks;
+     panels) and (4a) at B = 1, 48 and 100 with bf16 panels (the widths and
+     panel type of one training gradient; 100 is average_variance's) and
+     x3 panels at B = 48, through cuda_spmv.block_matvec, each record with
+     its batch tile; (4b) the panel-cotangent kernel at B = 1 and B = 48
+     through cuda_spmv.block_bwd_blocks;
   5. the 16,384-point serve held to the JAX package's numbers
      (examples_torch/serve_pins.json);
   6. the training slice: train_campaign at 262,144 points (3 epochs of
@@ -111,7 +116,10 @@ def peaks_for(name: str):
     return "H100 (SXM figures; card not in the table)", PEAKS["H100"]
 
 
-def time_ms(fn, reps: int = 5) -> float:
+def time_ms(fn, reps: int = 5, runs: int = 10) -> float:
+    """Median over ``reps`` of the mean time of ``runs`` back-to-back calls
+    between two CUDA events: the host's enqueue time between two launches
+    overlaps the device's work instead of adding to it."""
     import torch
 
     fn()
@@ -121,10 +129,11 @@ def time_ms(fn, reps: int = 5) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(runs):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / runs)
     return statistics.median(times)
 
 
@@ -342,7 +351,7 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     small = []
     for dtype, panels in panel_sets(small_layout, small_coeffs).items():
-        for batch in (1, 37, 128):
+        for batch in (1, 7, 8, 9, 37, 48, 64, 100, 125, 128, 129, 200):
             v = torch.randn((small_layout.num_nodes, batch), generator=gen, device=dev)
             small.append(compare(small_layout, panels, permute_in(small_layout, v).contiguous(),
                                  f"small {dtype}"))
@@ -420,14 +429,17 @@ def main():
                   + pv.numel() * 4 + nrb * 128 * b * 4)
         t_bytes, t_ops = nbytes / hbm_bps * 1e3, flops / rate * 1e3
         ms = time_ms(lambda: cuda_spmv.block_matvec(layout, panels, pv))
-        plain_ms = time_ms(lambda: cuda_spmv.block_matvec_plain(bc, panels, pv, s_max=s), reps=3)
+        plain_ms = time_ms(lambda: cuda_spmv.block_matvec_plain(bc, panels, pv, s_max=s),
+                           reps=3, runs=2)
         library_ms = None
         if not x3:
             cb = pv.reshape(-1, 128, b).index_select(0, bc).reshape(nrb, s * 128, b)
             cb = cb.to(panels.dtype)
             library_ms = time_ms(lambda: torch.bmm(panels, cb))
             del cb
-        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        return {"panels": "float32x3" if x3 else str(panels.dtype).replace("torch.", ""),
+                "batch_tile": cuda_spmv._batch_tile(b),
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops}
@@ -437,26 +449,28 @@ def main():
         rec = compare(layout, panels, pv, f"main {dtype}", timing=timing)
         del panels
         torch.cuda.empty_cache()
-        print(f"    ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+        print(f"    TB={rec['batch_tile']} ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
               f"library_ms={rec['library_ms']} bound_ms={rec['bound_ms']:.4f} "
               f"({rec['bound_by']})")
         main.append(rec)
     report["main"] = main
 
-    print("== phase 4a: forward kernel at the training path's widths (bf16 panels)")
-    bf16_panels = assemble(layout, main_coeffs.diag, main_coeffs.triu, dtype=torch.bfloat16)
+    print("== phase 4a: forward kernel at the training path's widths")
     main_fwd_train = []
-    for batch in (1, 48):
-        v = torch.randn((layout.num_nodes, batch), generator=gen, device=dev)
-        rec = compare(layout, bf16_panels, permute_in(layout, v).contiguous(),
-                      "main bfloat16", timing=timing)
-        print(f"    ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-              f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
-              f"({rec['bound_by']})")
-        main_fwd_train.append(rec)
-        del v
-    del bf16_panels
-    torch.cuda.empty_cache()
+    for dtype, batches in (("bfloat16", (1, 48, 100)), ("float32x3", (48,))):
+        tpanels = assemble(layout, main_coeffs.diag, main_coeffs.triu,
+                           dtype=torch.bfloat16 if dtype == "bfloat16" else dtype)
+        for batch in batches:
+            v = torch.randn((layout.num_nodes, batch), generator=gen, device=dev)
+            rec = compare(layout, tpanels, permute_in(layout, v).contiguous(),
+                          f"main {dtype}", timing=timing)
+            print(f"    TB={rec['batch_tile']} ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                  f"library_ms={rec['library_ms']} bound_ms={rec['bound_ms']:.4f} "
+                  f"({rec['bound_by']})")
+            main_fwd_train.append(rec)
+            del v
+        del tpanels
+        torch.cuda.empty_cache()
     report["main_fwd_train"] = main_fwd_train
 
     def timing_bwd(bc, g, pv, s, out_dtype):
@@ -476,7 +490,7 @@ def main():
             cuda_spmv.bwd_blocks_plain(bc, g, pv, s_max=s, out_dtype=out_dtype)
 
         ms = time_ms(kernel)
-        plain_ms = time_ms(plain, reps=3)
+        plain_ms = time_ms(plain, reps=3, runs=2)
         cb = pv.reshape(-1, 128, b).index_select(0, bc).reshape(nrb, s * 128, b)
         cbt = cb.to(out_dtype).transpose(1, 2)
         g3 = g.reshape(nrb, 128, b).to(out_dtype)
@@ -586,26 +600,37 @@ def main():
     raw_names = list(tpins["pins"]["initial"]["grads"])
     parity = {}
     by_mode = {}
-    for mode in ("edge", "panel"):
-        camp = build_campaign(
-            n=tpins["n"], device=dev, num_test=tpins["num_test"], k=tpins["k"],
-            seed=tpins["seed"], precond_type="jacobi", solve_cotangent=mode,
-            cg_tolerance=tpins["cg_tolerance"], cg_max_iter=tpins["cg_max_iter"])
-        rec = layout_record(camp, tpins["n"], tpins["k"], 100)
-        for key in ("num_edges", "max_blocks", "num_row_blocks"):
-            if rec[key] != tpins[key]:
-                fail(f"16k training {key}: port {rec[key]} != JAX {tpins[key]}")
-        probes = torch.from_numpy(rademacher_numpy(
-            tpins["probe_seed"], camp.model.num_data, tpins["num_probes"])).to(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        by_mode[mode] = {
-            label: loss_and_grad(camp.model, camp.model.init_params(**pin["hypers"]),
-                                 probes=probes)
-            for label, pin in tpins["pins"].items()
-        }
-        parity[f"peak_mem_bytes_{mode}"] = int(torch.cuda.max_memory_allocated(dev))
-        del camp, probes
-        torch.cuda.empty_cache()
+    # one campaign, both cotangent spaces: the two modes share the graph and
+    # panels, so they differ only in the backward (two builds would differ in
+    # the last bits of the coefficients, from the atomic scatter-adds)
+    camp = build_campaign(
+        n=tpins["n"], device=dev, num_test=tpins["num_test"], k=tpins["k"],
+        seed=tpins["seed"], precond_type="jacobi",
+        cg_tolerance=tpins["cg_tolerance"], cg_max_iter=tpins["cg_max_iter"])
+    rec = layout_record(camp, tpins["n"], tpins["k"], 100)
+    for key in ("num_edges", "max_blocks", "num_row_blocks"):
+        if rec[key] != tpins[key]:
+            fail(f"16k training {key}: port {rec[key]} != JAX {tpins[key]}")
+    probes = torch.from_numpy(rademacher_numpy(
+        tpins["probe_seed"], camp.model.num_data, tpins["num_probes"])).to(dev)
+    # deterministic scatter-adds: otherwise the atomic f32 sums of the
+    # coefficients' index_add move the loss at the trained hyperparameters
+    # by up to ~1e-5 between two evaluations of the same forward
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode in ("edge", "panel"):
+            camp.model.kernel.cfg = camp.model.kernel.cfg.replace(solve_cotangent=mode)
+            torch.cuda.reset_peak_memory_stats(dev)
+            by_mode[mode] = {
+                label: loss_and_grad(camp.model, camp.model.init_params(**pin["hypers"]),
+                                     probes=probes)
+                for label, pin in tpins["pins"].items()
+            }
+            parity[f"peak_mem_bytes_{mode}"] = int(torch.cuda.max_memory_allocated(dev))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del camp, probes
+    torch.cuda.empty_cache()
     for label, pin in tpins["pins"].items():
         loss, grads = by_mode["edge"][label]
         rel = abs(loss - pin["loss"]) / abs(pin["loss"])
@@ -739,7 +764,8 @@ def main():
         flops = 2 * npd * d * b
         t_bytes, t_ops = nbytes / hbm_bps * 1e3, flops / f32_flops * 1e3
         rec = {"ms": time_ms(lambda: dia.dia_matvec_call(layout, band, pv)),
-               "plain_ms": time_ms(lambda: dia.matvec_permuted(layout, band, pv), reps=3),
+               "plain_ms": time_ms(lambda: dia.matvec_permuted(layout, band, pv), reps=3,
+                                   runs=2),
                "library_ms": None if csr is None else time_ms(lambda: torch.sparse.mm(csr, pv)),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -867,11 +893,12 @@ def main():
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
         "panels": "float32",
+        "batch_tile": f32["batch_tile"],
         "shape": [*main_shape, 125],
         "other_shapes": [
-            {"panels": "bfloat16", **{k: r[k] for k in ("batch", "ms", "plain_ms", "bound_ms",
-                                                        "bound_by", "library_ms")}}
-            for r in main_fwd_train
+            {k: r[k] for k in ("panels", "batch", "batch_tile", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}
+            for r in main[1:] + main_fwd_train
         ],
     }, {
         "name": "block_ell_bwd_blocks",

@@ -8,9 +8,10 @@ and ``csrc/dia_spmv.cu``, kernel K4, wrapped by ``ops.dia``) are CUDA C++
 compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a`` (one
 ``nvcc -c`` per source, started together, then one link) into one shared
 library with a plain C interface and loaded with ``ctypes``, at first use,
-into ``manifold_gp_torch/build/`` (named by a hash of every source, so an
-edit to any of them rebuilds). Nothing is built or loaded when this module
-is imported.
+into ``manifold_gp_torch/build/`` (named by a hash of every file of
+``csrc/``, the ``.cuh`` headers the sources include among them, so an edit
+to any of them rebuilds). Nothing is built or loaded when this module is
+imported.
 
 Dispatch: for CUDA tensors the wrappers launch the kernel or raise; for CPU
 tensors they run ``block_matvec_plain`` / ``bwd_blocks_plain``, the same
@@ -24,7 +25,8 @@ memory with L2 as its cache, so K1 and K2 merge into one kernel:
 ``resident_matvec_call`` and ``stream_matvec_call`` are two names for one
 entry point, and ``_run_block_kernel`` has no size switch. Neither the
 8 MiB VMEM budget nor the pad-to-128 batch requirement carries over: the
-kernel masks a ragged batch edge itself.
+kernel takes a batch tile sized to B (``_batch_tile``) and masks a ragged
+batch edge itself.
 
 ``make_matvec_ad`` and ``make_matvec_edge_ad`` are the differentiable
 matvecs of training (``torch.autograd.Function``s): the cotangent of the
@@ -60,6 +62,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = (_CSRC / "block_ell_spmv.cu", _CSRC / "block_ell_bwd_blocks.cu",
             _CSRC / "dia_spmv.cu")
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build"
+_BATCH_TILES = (8, 16, 32, 64, 128)  # the forward kernel's batch-tile templates
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -84,15 +87,28 @@ def _nvcc() -> str:
     raise RuntimeError("block_ell kernels: nvcc not found (needed to build the CUDA kernels)")
 
 
+def _hashed_sources() -> list[pathlib.Path]:
+    """Every file the library is built from: the ``.cu`` sources it
+    compiles and the ``.cuh`` headers they include, sorted by name."""
+    return sorted([*_CSRC.glob("*.cu"), *_CSRC.glob("*.cuh")])
+
+
+def _library_digest() -> str:
+    """Hash of the compiler flags and of every file of ``csrc/``: the name
+    of the library built from them."""
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for src in _hashed_sources():
+        h.update(src.name.encode() + src.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def build_library() -> pathlib.Path:
     """Compile the kernel sources into one library in the package's build
-    directory (once per content of all sources) and return its path. The
-    sources compile side by side, one ``nvcc -c`` each, then link."""
+    directory (once per content of every file of ``csrc/``) and return its
+    path. The ``.cu`` sources compile side by side, one ``nvcc -c`` each,
+    then link."""
     global build_log
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in _SOURCES:
-        h.update(src.name.encode() + src.read_bytes())
-    digest = h.hexdigest()[:16]
+    digest = _library_digest()
     lib_path = _BUILD_DIR / f"libblock_ell-{digest}.so"
     if lib_path.exists():
         return lib_path
@@ -131,7 +147,7 @@ def _load():
             fn = lib.block_ell_spmv
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
@@ -195,6 +211,15 @@ def _check(bc_flat, blocks, pv, s_max):
     return nrb, pv.shape[1], (_MODE_X3 if x3 else _MODES[blocks.dtype])
 
 
+def _batch_tile(batch: int) -> int:
+    """The forward kernel's batch tile for a batch of ``batch`` columns: the
+    smallest template width >= min(batch, 128). Wider batches take several
+    128-wide tiles."""
+    if batch <= 0:
+        raise ValueError(f"block_ell_spmv: batch must be positive, got {batch}")
+    return next(tb for tb in _BATCH_TILES if tb >= min(batch, _BATCH_TILES[-1]))
+
+
 def block_matvec_plain(bc_flat, blocks, pv, *, s_max: int):
     """The kernel's arithmetic in plain PyTorch, on any device. Returns
     [nrb*128, B] f32."""
@@ -233,7 +258,7 @@ def block_matvec_cuda(bc_flat, blocks, pv, *, s_max: int):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.block_ell_spmv(
             blocks.data_ptr(), bc_flat.data_ptr(), pv.data_ptr(), out.data_ptr(),
-            nrb, s_max, batch, mode, stream,
+            nrb, s_max, batch, mode, _batch_tile(batch), stream,
         )
     if err != 0:
         raise RuntimeError(f"block_ell_spmv: launch failed with cudaError {err}")

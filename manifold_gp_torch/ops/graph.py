@@ -91,10 +91,11 @@ def _build_ell(rows, cols, num_nodes):
     return ell_edge, ell_col, ell_mask, max_degree
 
 
-def graph_from_edges(rows, cols, sqdist, num_nodes, device="cpu") -> SparseGraph:
+def graph_from_edges(rows, cols, sqdist, num_nodes, device=None) -> SparseGraph:
     """Assemble a SparseGraph from an already-coalesced triu edge list, which
     must be free of self-loops and duplicates (the block-ELL assembly keeps
-    one slot per entry)."""
+    one slot per entry), on ``device`` (default: CUDA, which raises without
+    a card)."""
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     sqdist = np.asarray(sqdist, np.float32)
@@ -110,6 +111,7 @@ def graph_from_edges(rows, cols, sqdist, num_nodes, device="cpu") -> SparseGraph
                 "graph_from_edges: duplicate (row, col) pairs; coalesce the "
                 "edge list first (see coalesce_mean)."
             )
+    device = resolve_device("cuda") if device is None else device
     ell_edge, ell_col, ell_mask, max_degree = _build_ell(rows, cols, num_nodes)
 
     def dev(a):
@@ -129,8 +131,9 @@ def graph_from_edges(rows, cols, sqdist, num_nodes, device="cpu") -> SparseGraph
 
 
 def symmetrize_knn_edges(sqd, idx, num_nodes: int, x=None,
-                         device="cpu") -> SparseGraph:
-    """Drop the self column, orient upper-triangular, mean-coalesce, assemble.
+                         device=None) -> SparseGraph:
+    """Drop the self column, orient upper-triangular, mean-coalesce, assemble
+    on ``device`` (default: CUDA, which raises without a card).
     ``sqd``/``idx`` are the raw [N, k] self-query search results (host
     arrays). With ``x`` the stored edge values are recomputed exactly as
     ||x_r - x_c||^2 by coordinate differencing; the search's values serve

@@ -90,7 +90,7 @@ def _panels(jl, tl, diag, triu, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float32x3"])
-@pytest.mark.parametrize("batch", [1, 37, 128])
+@pytest.mark.parametrize("batch", [1, 8, 37, 48, 128, 129])
 def test_plain_kernel_matches_pallas_k1_k2(problem, dtype, batch):
     jl, tl, diag, triu = problem
     jb, tb = _panels(jl, tl, diag, triu, dtype)
@@ -114,6 +114,18 @@ def test_plain_kernel_matches_pallas_k1_k2(problem, dtype, batch):
     for got in (t1.numpy(), t2.numpy()):
         np.testing.assert_allclose(got, k1, atol=2e-6 * scale)
         np.testing.assert_allclose(got, k2, atol=2e-6 * scale)
+
+
+@pytest.mark.parametrize("batch, tile", [(1, 8), (8, 8), (9, 16), (48, 64), (125, 128),
+                                         (129, 128), (200, 128), (0, None)])
+def test_batch_tile_choice(batch, tile):
+    """The forward kernel's batch tile: the smallest template width that
+    covers min(B, 128); wider batches take several 128-wide tiles."""
+    if tile is None:
+        with pytest.raises(ValueError, match="positive"):
+            tcs._batch_tile(batch)
+    else:
+        assert tcs._batch_tile(batch) == tile
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float32x3"])

@@ -114,10 +114,45 @@ def test_loaders_default_to_the_card(monkeypatch, tmp_path):
     assert load_params(tmp_path / "p.npz", device="cpu")["raw_noise"].device.type == "cpu"
 
 
+def test_graph_assembly_defaults_to_the_card(monkeypatch):
+    """graph_from_edges and symmetrize_knn_edges, like every port entry
+    point, default to CUDA and raise without a card (after their own
+    edge-list checks); the CPU must be asked for."""
+    from manifold_gp_torch.ops.graph import graph_from_edges, symmetrize_knn_edges
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sqd = np.array([[0.0, 1.0], [0.0, 1.0], [0.0, 4.0]], np.float32)
+    idx = np.array([[0, 1], [1, 0], [2, 1]])
+    for call in (lambda: graph_from_edges([0, 1], [1, 2], [1.0, 4.0], 3),
+                 lambda: symmetrize_knn_edges(sqd, idx, 3)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="self-loop"):
+        graph_from_edges([0, 1], [1, 1], [1.0, 1.0], 3)
+    g = symmetrize_knn_edges(sqd, idx, 3, device="cpu")
+    assert g.rows.device.type == "cpu" and g.rows.tolist() == [0, 1]
+
+
 def test_kernel_library_hash_covers_every_source():
     names = sorted(p.name for p in cuda_spmv._SOURCES)
     assert names == sorted(p.name for p in (ROOT / "manifold_gp_torch" / "csrc").glob("*.cu"))
     assert all(p.exists() for p in cuda_spmv._SOURCES)
+
+
+def test_kernel_library_hash_covers_headers(monkeypatch, tmp_path):
+    """The library's name hashes every file of csrc/ (the .cu sources and
+    the .cuh headers they include), so an edit to a header rebuilds."""
+    csrc = ROOT / "manifold_gp_torch" / "csrc"
+    want = sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")])
+    assert cuda_spmv._hashed_sources() == want
+    assert any(p.suffix == ".cuh" for p in want)
+    for p in want:
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(cuda_spmv, "_CSRC", tmp_path)
+    before = cuda_spmv._library_digest()
+    header = next(tmp_path.glob("*.cuh"))
+    header.write_text(header.read_text() + "\n")
+    assert cuda_spmv._library_digest() != before
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
