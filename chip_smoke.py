@@ -10,8 +10,10 @@ Phases (any failure exits non-zero before the result line is printed):
      SpMV with f32, bf16 and x3 panels through both entry points
      (resident/stream) at B = 1, 7, 8, 9, 37, 48, 64, 100, 125, 128, 129 and
      200 (every batch-tile template, each tile border, a second batch
-     tile); the panel-cotangent kernel with f32 and bf16 output at B = 1,
-     37, 128;
+     tile); the panel-cotangent kernel K3 with f32 and bf16 output through
+     both entry points (bwd_blocks_call, block_bwd_blocks) at B = 1, 8, 15,
+     16, 17, 37, 48, 64, 128, 129 and 200 (every batch class, the k padding
+     to the mma depth 16, the chunked contraction above 64);
   2c. the DIA band kernel K4 vs plain at small DIA layouts (1,500- and
      10,240-point k = 8 curves; B = 1, 37, 128; f32 and bf16 bands) through
      dia_matvec_call and through make_matvec_ad's forward and bar_pv;
@@ -30,7 +32,8 @@ Phases (any failure exits non-zero before the result line is printed):
      panel type of one training gradient; 100 is average_variance's) and
      x3 panels at B = 48, through cuda_spmv.block_matvec, each record with
      its batch tile; (4b) the panel-cotangent kernel at B = 1 and B = 48
-     through cuda_spmv.block_bwd_blocks;
+     through cuda_spmv.block_bwd_blocks, each record with its batch class,
+     and the edge path's gather after it (flat[edge_flat], flat[diag_flat]);
   5. the 16,384-point serve held to the JAX package's numbers
      (examples_torch/serve_pins.json);
   6. the training slice: train_campaign at 262,144 points (3 epochs of
@@ -41,9 +44,10 @@ Phases (any failure exits non-zero before the result line is printed):
      gradient, finite loss and gradients and a loss that falls; then one
      gradient with panel-space cotangents for its peak memory;
   7. the 16,384-point loss and gradients held to the JAX package's numbers
-     (examples_torch/train_pins.json), edge- against panel-space
-     cotangents on the card, and a checkpointed run resumed on the card
-     against the uninterrupted one;
+     (examples_torch/train_pins.json): edge-space cotangents to its "pins",
+     panel-space cotangents over bf16 panels to its "pins_panel"; edge-
+     against panel-space cotangents on the card, and a checkpointed run
+     resumed on the card against the uninterrupted one;
   8. the curve training slice: train_campaign(manifold="curve", k=8) at
      262,144 points (3 epochs on DIA bands, then one gradient at the initial
      and one at the reached hyperparameters), every launch count reset just
@@ -204,7 +208,8 @@ def compare_bwd(layout, g, pv, out_dtype, label, timing=None):
     want = cuda_spmv.bwd_blocks_plain(bc, g, pv, s_max=s, out_dtype=out_dtype)
     scale = float(want.abs().max())
     rec = {"case": label, "batch": int(pv.shape[1]), "scale": scale,
-           "out_dtype": str(out_dtype).replace("torch.", "")}
+           "out_dtype": str(out_dtype).replace("torch.", ""),
+           "batch_class": cuda_spmv._bwd_batch_class(int(pv.shape[1]))}
     for entry, call in (
         ("bwd_blocks_call", lambda: cuda_spmv.bwd_blocks_call(bc, g, pv, s_max=s,
                                                               out_dtype=out_dtype)),
@@ -224,7 +229,7 @@ def compare_bwd(layout, g, pv, out_dtype, label, timing=None):
         rec[entry] = {"max_abs_err": err, "max_rel_err": rel}
         ok = finite and rel <= tol
         print(f"  {label:<34} B={pv.shape[1]:<4} {entry:<21} max_rel_err={rel:.3e} "
-              f"(threshold {tol:.0e}) {'ok' if ok else 'MISMATCH'}")
+              f"(threshold {tol:.0e}; class {rec['batch_class']}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"kernel disagrees with its plain version: {label} {entry} rel={rel}")
     del want
@@ -358,7 +363,7 @@ def main():
     report["small"] = small
     small_bwd = []
     for out_dtype in (torch.float32, torch.bfloat16):
-        for batch in (1, 37, 128):
+        for batch in (1, 8, 15, 16, 17, 37, 48, 64, 128, 129, 200):
             v = torch.randn((small_layout.num_nodes, batch), generator=gen, device=dev)
             gct = torch.randn((small_layout.num_padded, batch), generator=gen, device=dev)
             small_bwd.append(compare_bwd(small_layout, gct,
@@ -497,8 +502,14 @@ def main():
         del cb
         library_ms = time_ms(lambda: torch.bmm(g3, cbt))
         del cbt, g3
+        gather_ms = None
+        if out_dtype == torch.float32:  # what the edge path does with K3's output
+            flat = cuda_spmv.block_bwd_blocks(layout, g, pv).reshape(-1)
+            gather_ms = time_ms(lambda: (flat[layout.edge_flat], flat[layout.diag_flat]))
+            del flat
         torch.cuda.empty_cache()
         return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "edge_gather_ms": gather_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "flops": flops}
@@ -515,9 +526,10 @@ def main():
         for out_dtype in (torch.float32, torch.bfloat16):
             rec = compare_bwd(layout, gct, pvb, out_dtype,
                               f"main bwd {str(out_dtype)[6:]}", timing=timing_bwd)
-            print(f"    ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-                  f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
-                  f"({rec['bound_by']})")
+            print(f"    class {rec['batch_class']} ms={rec['ms']:.4f} "
+                  f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+                  f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
+                  f"edge_gather_ms={rec['edge_gather_ms']}")
             main_bwd.append(rec)
     report["main_bwd"] = main_bwd
     main_shape = [layout.num_row_blocks, layout.max_blocks]
@@ -637,23 +649,35 @@ def main():
         gscale = max(abs(v) for v in pin["grads"].values())
         gerr = max(abs(grads[k] - pin["grads"][k]) for k in raw_names) / gscale
         ploss, pgrads = by_mode["panel"][label]
+        ppin = tpins["pins_panel"][label]
+        prel = abs(ploss - ppin["loss"]) / abs(ppin["loss"])
+        pscale = max(abs(v) for v in ppin["grads"].values())
+        pgerr = max(abs(pgrads[k] - ppin["grads"][k]) for k in raw_names) / pscale
         ep_loss = abs(loss - ploss) / abs(loss)
         ep_grad = max(abs(grads[k] - pgrads[k]) for k in raw_names) / gscale
         parity[label] = {"port": {"loss": loss, "grads": grads}, "jax": pin,
                          "loss_rel": rel, "grad_rel_of_max": gerr,
-                         "panel": {"loss": ploss, "grads": pgrads},
+                         "panel": {"loss": ploss, "grads": pgrads, "jax": ppin,
+                                   "loss_rel": prel, "grad_rel_of_max": pgerr},
                          "edge_vs_panel_loss_rel": ep_loss,
                          "edge_vs_panel_grad_rel_of_max": ep_grad}
         print(f"  {label}: loss port {loss:.7f} jax {pin['loss']:.7f} rel {rel:.2e} "
               f"(rtol {tpins['loss_rtol']}); gradients max diff / max |grad| {gerr:.2e} "
               f"(rtol {tpins['grad_rtol']}); edge vs panel: loss {ep_loss:.2e}, "
               f"gradients {ep_grad:.2e} (rtol {EDGE_PANEL_RTOL})")
+        print(f"  {label}, panel-space cotangents over bf16 panels: loss port {ploss:.7f} "
+              f"jax {ppin['loss']:.7f} rel {prel:.2e}; gradients max diff / max |grad| "
+              f"{pgerr:.2e}")
         if not all(v is not None and v == v for v in grads.values() if v is not None):
             fail(f"16k {label}: non-finite gradient")
         if not rel <= tpins["loss_rtol"]:
             fail(f"16k {label} loss differs from the JAX pin by {rel:.2e}")
         if not gerr <= tpins["grad_rtol"]:
             fail(f"16k {label} gradients differ from the JAX pins by {gerr:.2e}")
+        if not prel <= tpins["loss_rtol"]:
+            fail(f"16k {label} panel-space loss differs from the JAX pin by {prel:.2e}")
+        if not pgerr <= tpins["grad_rtol"]:
+            fail(f"16k {label} panel-space gradients differ from the JAX pins by {pgerr:.2e}")
         if not (ep_loss <= 1e-5 and ep_grad <= EDGE_PANEL_RTOL):
             fail(f"16k {label}: edge and panel cotangents disagree "
                  f"(loss {ep_loss:.2e}, gradients {ep_grad:.2e})")
@@ -914,10 +938,13 @@ def main():
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
         "output": "float32",
+        "batch_class": bwd["batch_class"],
         "shape": [*main_shape, 48],
+        "edge_gather_ms": bwd["edge_gather_ms"],
         "other_shapes": [
-            {k: r[k] for k in ("batch", "out_dtype", "ms", "plain_ms", "bound_ms",
+            {k: r[k] for k in ("batch", "out_dtype", "batch_class", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms")}
+            | {"max_rel_err": r["block_bwd_blocks"]["max_rel_err"]}
             for r in main_bwd if r is not bwd
         ],
     }, {

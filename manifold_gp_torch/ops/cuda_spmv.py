@@ -63,6 +63,7 @@ _SOURCES = (_CSRC / "block_ell_spmv.cu", _CSRC / "block_ell_bwd_blocks.cu",
             _CSRC / "dia_spmv.cu")
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build"
 _BATCH_TILES = (8, 16, 32, 64, 128)  # the forward kernel's batch-tile templates
+_BWD_CHUNK = 32  # K3: batch columns per chunk above its widest resident class
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -154,7 +155,7 @@ def _load():
             bwd = lib.block_ell_bwd_blocks
             bwd.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p,
             ]
             bwd.restype = ctypes.c_int
@@ -334,6 +335,16 @@ def _check_bwd(bc_flat, g, pv, s_max, out_dtype):
     return nrb, pv.shape[1]
 
 
+def _bwd_batch_class(batch: int) -> int:
+    """K3's batch class for a batch of ``batch`` columns: the columns of
+    shared memory a factor tile holds, 16, 32 or 64 (the smallest that
+    holds the batch, g then staged once per row block); above 64, 32 (the
+    batch runs in 32-column chunks)."""
+    if batch <= 0:
+        raise ValueError(f"block_ell_bwd_blocks: batch must be positive, got {batch}")
+    return next((kb for kb in (16, 32, 64) if batch <= kb), _BWD_CHUNK)
+
+
 def bwd_blocks_plain(bc_flat, g, pv, *, s_max: int, out_dtype=torch.float32):
     """K3's arithmetic in plain PyTorch, on any device: gather the operand
     slices, then one batched product over the batch dimension. For bf16
@@ -366,7 +377,7 @@ def bwd_blocks_cuda(bc_flat, g, pv, *, s_max: int, out_dtype=torch.float32):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.block_ell_bwd_blocks(
             g.data_ptr(), bc_flat.data_ptr(), pv.data_ptr(), out.data_ptr(),
-            nrb, s_max, batch, _OUT_MODES[out_dtype], stream,
+            nrb, s_max, batch, _OUT_MODES[out_dtype], _bwd_batch_class(batch), stream,
         )
     if err != 0:
         raise RuntimeError(f"block_ell_bwd_blocks: launch failed with cudaError {err}")

@@ -4,12 +4,24 @@ package on the CPU.
 
 Runs the setup of ``examples/run_large.py::run_campaign`` (torus sample,
 split, label normalization, exact kNN graph, unit-bandwidth rescale,
-bandwidth floor, the campaign's InferenceConfig with bf16 panels and
-edge-space cotangents) with the Jacobi preconditioner and a tight CG
-tolerance, and takes ``mll_loss`` and its gradients w.r.t. the four raw
-hyperparameters at the campaign's initial and at its trained
-hyperparameters. The SLQ probes are Rademacher draws from a numpy seed, so
-the port regenerates them instead of reading a large file.
+bandwidth floor, the campaign's InferenceConfig with bf16 panels) with the
+Jacobi preconditioner and a tight CG tolerance, and takes ``mll_loss`` and
+its gradients w.r.t. the four raw hyperparameters at the campaign's initial
+and at its trained hyperparameters, once with edge-space cotangents (the
+campaign's, ``pins``) and once with panel-space cotangents (``pins_panel``).
+
+Panel space: on a TPU the JAX package takes the panels' cotangent through
+its custom VJP (``pallas_spmv.make_matvec_ad``); at this size its backward
+takes the bf16 einsum branch, which rounds g and the gathered operand to
+bf16, sums their products in f32 and rounds the result to bf16 once, the
+arithmetic of the panel-cotangent kernel K3. On the CPU the package would
+differentiate the plain einsum instead (g unrounded), so this script routes
+the solves through ``make_matvec_ad`` with its forward kernel replaced by
+the same product as the plain einsum (``block_sparse.matvec_permuted``:
+bf16 panels, operand rounded to bf16, f32 sums), since Pallas needs a TPU.
+
+The SLQ probes are Rademacher draws from a numpy seed, so the port
+regenerates them instead of reading a large file.
 ``examples_torch/run_large.py`` holds the same pipeline in the PyTorch port;
 its chip check holds its numbers to the ones this script writes.
 
@@ -41,9 +53,20 @@ def rademacher_numpy(seed: int, n: int, num_probes: int) -> np.ndarray:
     return (2 * bits - 1).astype(np.float32)
 
 
+def _panel_vjp_on_cpu(kernel):
+    """Route ``kernel``'s panel-space solves through the package's custom
+    VJP, whose forward kernel runs as the plain einsum (see the module
+    note)."""
+    from manifold_gp_tpu.ops import block_sparse, pallas_spmv
+
+    pallas_spmv._run_block_kernel = (
+        lambda layout, blocks, pv, interpret=False: block_sparse.matvec_permuted(layout, blocks, pv))
+    kernel.use_pallas = True
+
+
 def train_pins_jax(n: int, num_test: int, probe_seed: int, cg_tolerance: float,
                    cg_max_iter: int, k: int = 16, num_modes: int = 100,
-                   seed: int = 0, nu: int = 2) -> dict:
+                   seed: int = 0, nu: int = 2, cotangent: str = "edge") -> dict:
     import dataclasses
 
     import jax
@@ -75,7 +98,7 @@ def train_pins_jax(n: int, num_test: int, probe_seed: int, cg_tolerance: float,
         max_cholesky=0, dense_operator_max_size=0, num_probes=48,
         lanczos_max_iter=24, cg_tolerance=cg_tolerance, cg_max_iter=cg_max_iter,
         precond_type="jacobi", spmv_dtype="bfloat16",
-        solve_cotangent="edge", use_dia=False, eigensolver="chebyshev",
+        solve_cotangent=cotangent, use_dia=False, eigensolver="chebyshev",
     )
     n_tr = train_x.shape[0]
     sq_np = np.asarray(graph.sqdist)
@@ -89,6 +112,8 @@ def train_pins_jax(n: int, num_test: int, probe_seed: int, cg_tolerance: float,
         bump_scale=10.0, cfg=cfg, graph=graph,
         graphbandwidth_constraint=GreaterThan(gb_min),
     )
+    if cotangent == "panel":
+        _panel_vjp_on_cpu(kernel)
     model = RiemannGP(train_x_s, jnp.asarray(train_y), kernel, cfg=cfg)
 
     probes = jnp.asarray(rademacher_numpy(probe_seed, n_tr, cfg.num_probes))
@@ -102,7 +127,7 @@ def train_pins_jax(n: int, num_test: int, probe_seed: int, cg_tolerance: float,
         )(params)
         out[label] = {"hypers": dict(hypers), "loss": float(loss),
                       "grads": {k_: float(grads[k_]) for k_ in RAW}}
-        print(label, out[label], file=sys.stderr)
+        print(cotangent, label, out[label], file=sys.stderr)
     layout = kernel.block_layout
     return {
         "n": n, "num_test": num_test, "k": k, "seed": seed, "probe_seed": probe_seed,
@@ -123,8 +148,9 @@ def main():
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     result = {
-        "source": "tests/_train_pins.py (manifold_gp_tpu on the CPU, f32, "
-                  "matmul precision highest, bf16 panels, edge cotangents, Jacobi)",
+        "source": "tests/_train_pins.py (manifold_gp_tpu on the CPU, f32, matmul precision "
+                  "highest, bf16 panels, Jacobi; pins: edge cotangents, pins_panel: panel "
+                  "cotangents through make_matvec_ad's bf16 branch)",
         # Loss: a matvec and a fixed number of Lanczos steps, no solve; the
         # two packages differ by f32 sum order only. Gradients: CG solves
         # stopped at cg_tolerance on both sides, in different sum orders;
@@ -134,6 +160,10 @@ def main():
         **train_pins_jax(args.n, args.num_test, args.probe_seed, args.cg_tolerance,
                          args.cg_max_iter),
     }
+    # after the edge pins: the panel run patches the package's dispatch
+    result["pins_panel"] = train_pins_jax(args.n, args.num_test, args.probe_seed,
+                                          args.cg_tolerance, args.cg_max_iter,
+                                          cotangent="panel")["pins"]
     text = json.dumps(result, indent=1)
     print(text)
     if args.out:

@@ -85,6 +85,22 @@ def test_plain_bwd_blocks_matches_pallas_k3(problem, out_dtype, batch):
         _assert_close(got.to(torch.float32).numpy(), np.asarray(want.astype(jnp.float32)), tol)
 
 
+@pytest.mark.parametrize("batch,batch_class", [
+    (1, 16), (8, 16), (15, 16), (16, 16), (17, 32), (32, 32), (33, 64), (48, 64), (64, 64),
+    (65, 32), (128, 32), (129, 32), (200, 32)])
+def test_bwd_batch_class_choice(batch, batch_class):
+    """K3's template: the narrowest of 16 / 32 / 64 columns that holds the
+    batch (g then stays in shared memory for the whole row block); wider
+    batches run in 32-column chunks."""
+    assert tcs._bwd_batch_class(batch) == batch_class
+
+
+@pytest.mark.parametrize("batch", [0, -3])
+def test_bwd_batch_class_refuses_empty_batches(batch):
+    with pytest.raises(ValueError, match="positive"):
+        tcs._bwd_batch_class(batch)
+
+
 def test_bwd_blocks_writes_padding_slots_like_the_tpu_kernel(problem):
     # slots assemble never fills carry block_col = 0 and receive g[r] @ pv[0:128]^T
     jl, tl, _, _ = problem
@@ -155,6 +171,38 @@ def test_matvec_ad_gradients_match_jax(problem, dtype, batch):
                   F32_TOL if dtype == "float32" else BF16_TOL)
     if dtype == "float32x3":  # both halves receive the same cotangent
         assert torch.equal(tbar_b[0], tbar_b[1])
+
+
+@pytest.mark.parametrize("batch", [5, 128])
+def test_matvec_ad_bf16_panel_cotangent_matches_jax_einsum_branch(problem, batch):
+    """bf16 panels: bar_blocks against JAX's custom VJP at its own size
+    budget, where it takes the bf16 einsum branch (g and the gathered
+    operand rounded to bf16, f32 sums, one rounding) that the panel-space
+    training pins run through. The two agree but for a few elements where
+    f32 sum order straddles a bf16 rounding boundary; a product that skips
+    the rounding of g, still within BF16_TOL of the largest value, misses
+    in over a third of the elements, so the mean error tells them apart."""
+    jl, tl, diag, triu = problem
+    jb, tb = _panels(jl, tl, diag, triu, "bfloat16")
+    pv, g = _vectors(jl, batch, seed=batch + 1)
+    assert pv.shape[0] * 128 * 4 <= jps._OPERAND_VMEM_BUDGET  # the einsum branch
+    _, vjp = jax.vjp(jps.make_matvec_ad(jl, interpret=True), jb, jnp.asarray(pv))
+    want = np.asarray(vjp(jnp.asarray(g))[0].astype(jnp.float32))
+    tb = tb.clone().requires_grad_(True)
+    tout = tcs.make_matvec_ad(tl)(tb, torch.from_numpy(pv))
+    (got,) = torch.autograd.grad(tout, (tb,), torch.from_numpy(g))
+
+    def mean_rel_err(x):
+        return np.abs(np.asarray(x, np.float32) - want).sum() / np.abs(want).sum()
+
+    _assert_close(got.to(torch.float32).numpy(), want, BF16_TOL)
+    assert mean_rel_err(got.to(torch.float32).numpy()) <= 1e-6
+    bc = tl.block_col.long()
+    nrb, s_max = tl.num_row_blocks, tl.max_blocks
+    rounded_pv = torch.from_numpy(pv).to(torch.bfloat16).to(torch.float32)
+    gathered = rounded_pv.reshape(nrb, 128, batch)[bc].reshape(nrb, s_max * 128, batch)
+    unrounded_g = torch.bmm(torch.from_numpy(g).reshape(nrb, 128, batch), gathered.mT)
+    assert mean_rel_err(unrounded_g.to(torch.bfloat16).to(torch.float32).numpy()) > 1e-4
 
 
 def test_matvec_ad_skips_the_cotangents_nobody_asks_for(problem):

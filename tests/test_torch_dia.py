@@ -212,10 +212,10 @@ INIT = dict(noise=1e-2, outputscale=1.0, graphbandwidth=1.0, lengthscale=1.0)
 
 def test_mll_loss_on_dia_matches_jax(monkeypatch):
     """The curve campaign's training configuration (DIA bands, f32, panel
-    cotangents, Jacobi) at N = 5,000, k = 8, with shared probes: the twin of
+    cotangents, Jacobi) at N = 1,500, k = 8, with shared probes: the twin of
     test_torch_train.py::test_mll_loss_slq_branch_matches_jax on DIA. The
     coordinates are rescaled to unit graph bandwidth, as in the campaign."""
-    n = 5000
+    n = 1500
     x, t = curve_points(n, seed=0)
     y = (np.sin(3 * t) + 0.5 * np.sin(7 * t)
          + 0.1 * np.random.default_rng(0).standard_normal(n)).astype(np.float32)

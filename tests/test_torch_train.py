@@ -20,7 +20,9 @@ from _torch_data import one_torch_thread  # noqa: F401  (autouse, module scope)
 import manifold_gp_tpu as J
 import manifold_gp_torch as T
 from examples_torch.run_large import torus_points
+from manifold_gp_tpu.ops import block_sparse as jbs
 from manifold_gp_tpu.ops import engine as jengine
+from manifold_gp_tpu.ops import pallas_spmv as jps
 from manifold_gp_tpu.ops import slq as jslq
 from manifold_gp_tpu.priors import GammaPrior as JGammaPrior
 from manifold_gp_tpu.priors import data_driven_bandwidth_prior as j_bandwidth_prior
@@ -86,14 +88,34 @@ def _loss_and_grads(jm, tm, probes, monkeypatch, init=INIT):
         [float(g) for g in tg])
 
 
-@pytest.mark.parametrize("mode,dtype,n", [("edge", "float32", 5000), ("panel", "float32", 5000),
-                                          ("edge", "bfloat16", 1500)])
+def _jax_panel_vjp(jm, monkeypatch):
+    """Take the JAX model's panel-space cotangents through its own custom VJP
+    (``make_matvec_ad``), as on a TPU: at this size its backward takes the
+    bf16 einsum branch, which rounds both factors to bf16 as K3 does (the CPU
+    default differentiates the plain einsum, with g unrounded). Its forward
+    kernel needs a TPU, so it runs as the plain einsum, the same product."""
+    monkeypatch.setattr(jps, "_run_block_kernel",
+                        lambda layout, blocks, pv, interpret=False:
+                        jbs.matvec_permuted(layout, blocks, pv))
+    monkeypatch.setattr(jm.kernel, "use_pallas", True)
+
+
+@pytest.mark.parametrize("mode,dtype,n", [("edge", "float32", 1500), ("panel", "float32", 5000),
+                                          ("edge", "bfloat16", 1500), ("panel", "bfloat16", 1500)])
 def test_mll_loss_slq_branch_matches_jax(mode, dtype, n, monkeypatch):
-    """The block path's SLQ branch with shared probes at N = 5,000, with
-    edge- and with panel-space cotangents; and the campaign's own
-    combination (edge cotangents over bf16 panels) at a size where the CPU's
-    emulated bf16 products stay cheap."""
+    """The block path's SLQ branch with shared probes, with edge- and with
+    panel-space cotangents over f32 panels; and over bf16 panels, the
+    campaign's edge cotangents and the panel cotangents that round K3's
+    factors and result to bf16, at a size where the CPU's emulated bf16
+    products stay cheap. dense_operator_max_size=0 keeps every size on the
+    block path. At N = 1,500 JAX's edge and panel gradients over bf16
+    panels differ by 2.8e-4 of the largest, inside the gradient tolerance,
+    so this case holds the panel path end to end but cannot tell the two
+    roundings apart: test_torch_bwd_blocks pins the rounding at the VJP,
+    and the 16k pins (a 1.67e-2 gap) on the card."""
     jm, tm = _models(n, max_cholesky=0, solve_cotangent=mode, spmv_dtype=dtype, prior=True)
+    if (mode, dtype) == ("panel", "bfloat16"):
+        _jax_panel_vjp(jm, monkeypatch)
     probes = _rademacher(n, 8)
     jl, jg, tl, tg = _loss_and_grads(jm, tm, probes, monkeypatch)
     # loss: a matvec and 12 Lanczos steps, f32 sum order apart
