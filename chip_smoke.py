@@ -15,8 +15,14 @@ Phases (any failure exits non-zero before the result line is printed):
      16, 17, 37, 48, 64, 128, 129 and 200 (every batch class, the k padding
      to the mma depth 16, the chunked contraction above 64);
   2c. the DIA band kernel K4 vs plain at small DIA layouts (1,500- and
-     10,240-point k = 8 curves; B = 1, 37, 128; f32 and bf16 bands) through
-     dia_matvec_call and through make_matvec_ad's forward and bar_pv;
+     10,240-point k = 8 curves at B = 1, 2, 3, 4, 5, 8, 17, 33, 37, 64, 99,
+     100, 127, 128, 129, 200: every template of dia.dia_plan, the row
+     runs its shared-memory budget caps at a few columns, each ragged
+     float4 group, the 128-column chunks; and two
+     synthetic layouts that take the general template: gapped offsets
+     within +-512 and D = 128 offsets within +-512), f32 and bf16 bands,
+     through dia_matvec_call and through make_matvec_ad's forward and
+     bar_pv, each record with its template;
   3. the serving slice: serve the 262,144-point torus campaign
      (examples_torch/run_large.py::serve_campaign) with the launch counts
      reset to 0 just before and read just after; requires >= 1,543 forward
@@ -59,10 +65,13 @@ Phases (any failure exits non-zero before the result line is printed):
      floor;
   8b. K4 vs plain at the served layout (B = 1, 100, 128) with times: kernel,
      plain version, library yardstick (one torch.sparse.mm of the same L_sym
-     as CSR, used nowhere in the port) and the bound; the block-ELL forward
+     as CSR, used nowhere in the port) and the bound, and the kernel's and
+     the yardstick's device-only times (20 calls in one CUDA graph,
+     replayed: at B = 1 the host's enqueue paces back-to-back launches);
+     the block-ELL forward
      kernel on the same graph (use_dia=False) at B = 128; and both formats
-     on the k = 16 curve (DIA forced with 128 offsets): the DIA-vs-panel
-     crossover on this card;
+     on the k = 16 and k = 24 curves (DIA forced with 128 offsets; K4 with
+     its yardstick and bound): the DIA-vs-panel crossover on this card;
   9. the 16,384-point curve held to the JAX package's numbers
      (examples_torch/curve_pins.json): loss and gradients with shared
      probes, serve RMSE/NLL on the host f64 basis.
@@ -95,6 +104,10 @@ EDGE_PANEL_RTOL = 5e-2  # of the largest gradient: the panel path rounds its
 K3_PER_GRADIENT = 12   # 2 terms (quad, Hutchinson) x 3 Neumann applies x nu = 2
 FWD_PER_GRADIENT = 150  # 24 Lanczos steps x 6 alone are 144
 K4_PER_GRADIENT = 192  # curve: 32 Lanczos steps x 3 Neumann applies x nu = 2
+# K4's phase-2c widths: B = 1 (row template), up to 16 (row runs capped by
+# the shared-memory budget), 17-128, ragged float4 groups, and above 128
+# (column chunks).
+DIA_WIDTHS = (1, 2, 3, 4, 5, 8, 17, 33, 37, 64, 99, 100, 127, 128, 129, 200)
 EDGE_TIES = 1e-4  # share of kNN edges the port's and JAX's searches may
                   # pick differently where two distances tie in f32 (one
                   # edge in 57,878 on the 16k curve)
@@ -135,6 +148,32 @@ def time_ms(fn, reps: int = 5, runs: int = 10) -> float:
         start.record()
         for _ in range(runs):
             fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / runs)
+    return statistics.median(times)
+
+
+def graph_ms(fn, runs: int = 20, reps: int = 5) -> float:
+    """Device time per call: ``runs`` calls captured in one CUDA graph,
+    replayed between two events (median of ``reps``), so no host enqueue
+    paces a call shorter than the host's own work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(runs):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / runs)
@@ -248,8 +287,10 @@ def compare_dia(layout, band, pv, label):
 
     want = dia.matvec_permuted(layout, band, pv)
     scale = float(want.abs().max())
+    plan = dia.dia_plan(layout.offsets, layout.halfwidth, int(pv.shape[1]), band.element_size())
     rec = {"case": label, "batch": int(pv.shape[1]), "scale": scale,
-           "band": str(band.dtype).replace("torch.", "")}
+           "band": str(band.dtype).replace("torch.", ""), "template": plan.template,
+           "rows_per_thread": plan.rows_per_thread, "rows_per_block": plan.rows_per_block}
     g = torch.randn(pv.shape, generator=torch.Generator(device=pv.device).manual_seed(3),
                     device=pv.device)
     want_bar = dia.matvec_permuted(layout, band, g)
@@ -265,10 +306,26 @@ def compare_dia(layout, band, pv, label):
         rec[entry] = {"max_abs_err": err, "max_rel_err": rel}
         ok = bool(torch.isfinite(got).all()) and rel <= SMALL_TOL
         print(f"  {label:<34} B={pv.shape[1]:<4} {entry:<21} max_rel_err={rel:.3e} "
-              f"(threshold {SMALL_TOL:.0e}) {'ok' if ok else 'MISMATCH'}")
+              f"(threshold {SMALL_TOL:.0e}; {plan.template}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"K4 disagrees with its plain version: {label} {entry} rel={rel}")
     return rec
+
+
+def synthetic_dia(offsets, n, band_dtype, seed, device):
+    """A DIA layout in band order with these offsets, random band lanes in
+    its N true rows and zero halo rows (the layout contract)."""
+    import numpy as np
+    import torch
+
+    from manifold_gp_torch.ops import dia
+
+    layout = dia.layout_from_offsets(offsets, n, device=device)
+    lanes = np.random.default_rng(seed).standard_normal((n, layout.num_offsets))
+    band = torch.zeros((layout.num_padded, dia.BAND_WIDTH), device=device)
+    band[dia.TILE:dia.TILE + n, :layout.num_offsets] = torch.from_numpy(
+        lanes.astype(np.float32)).to(device)
+    return layout, band.to(band_dtype)
 
 
 def band_csr(layout, band):
@@ -383,10 +440,22 @@ def main():
         print(f"  {n_small}-point curve: D={dl.num_offsets} W={dl.halfwidth} Npd={dl.num_padded}")
         for band_dtype in (torch.float32, torch.bfloat16):
             band = dia.assemble(dl, cc.diag, cc.triu, dtype=band_dtype)
-            for batch in (1, 37, 128):
+            for batch in DIA_WIDTHS:
                 v = torch.randn((n_small, batch), generator=gen, device=dev)
                 small_dia.append(compare_dia(dl, band, dia.permute_in(dl, v).contiguous(),
                                              f"curve{n_small} {str(band_dtype)[6:]}"))
+    for name, offsets in (("gapped", dia.GAPPED_OFFSETS), ("wide", dia.spread_offsets())):
+        for band_dtype in (torch.float32, torch.bfloat16):
+            sl, sband = synthetic_dia(offsets, 3000, band_dtype, seed=len(offsets), device=dev)
+            print(f"  synthetic {name}: D={sl.num_offsets} W={sl.halfwidth} Npd={sl.num_padded}")
+            for batch in (1, 3, 37, 100, 128, 200):
+                pv = torch.randn((sl.num_padded, batch), generator=gen, device=dev)
+                pv[:dia.TILE] = 0.0
+                pv[dia.TILE + sl.num_nodes:] = 0.0
+                rec = compare_dia(sl, sband, pv, f"{name} {str(band_dtype)[6:]}")
+                if batch > 1 and rec["template"] != "general":
+                    fail(f"the {name} layout took the {rec['template']} template")
+                small_dia.append(rec)
     report["small_dia"] = small_dia
 
     # -- phase 3: the slice at 262,144 points ------------------------------
@@ -788,9 +857,12 @@ def main():
         flops = 2 * npd * d * b
         t_bytes, t_ops = nbytes / hbm_bps * 1e3, flops / f32_flops * 1e3
         rec = {"ms": time_ms(lambda: dia.dia_matvec_call(layout, band, pv)),
+               "device_ms": graph_ms(lambda: dia.dia_matvec_call(layout, band, pv)),
                "plain_ms": time_ms(lambda: dia.matvec_permuted(layout, band, pv), reps=3,
                                    runs=2),
                "library_ms": None if csr is None else time_ms(lambda: torch.sparse.mm(csr, pv)),
+               "library_device_ms": None if csr is None else graph_ms(
+                   lambda: torch.sparse.mm(csr, pv)),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": nbytes, "flops": flops}
@@ -800,15 +872,48 @@ def main():
                                            / lib.abs().max())
         return rec
 
+    def host_us(fn, calls=2000):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    def dia_host_us(layout, band, pv, csr):
+        """Where K4's time per call goes at a width whose kernel is shorter
+        than the host's work (B = 1): the wrapper, the bare C entry with
+        the wrapper's arguments made once, and the wrapper's output
+        allocation alone; sparse.mm beside them."""
+        npd, b = pv.shape
+        lib = cuda_spmv._load()
+        offsets, d, w, kind, rows, block = dia._launch_args(layout.offsets, layout.halfwidth,
+                                                            b, band.element_size())
+        out = torch.empty_like(pv)
+        bare = (band.data_ptr(), pv.data_ptr(), out.data_ptr(), offsets, d, w, npd, b,
+                dia.BAND_WIDTH, 0, kind, rows, block, torch.cuda.current_stream().cuda_stream)
+        return {"dia_matvec_call": host_us(lambda: dia.dia_matvec_call(layout, band, pv)),
+                "c_entry": host_us(lambda: lib.dia_spmv(*bare)),
+                "torch.empty": host_us(lambda: torch.empty((npd, b), device=pv.device)),
+                "sparse.mm": host_us(lambda: torch.sparse.mm(csr, pv))}
+
     main_dia = []
     for batch in (1, 100, 128):
         v = torch.randn((dlayout.num_nodes, batch), generator=gen, device=dev)
         pv = dia.permute_in(dlayout, v).contiguous()
         rec = compare_dia(dlayout, dband, pv, "served curve float32")
         rec.update(dia_timing(dlayout, dband, pv, csr))
-        print(f"    ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+        print(f"    {rec['template']} (R={rec['rows_per_thread']}, TR={rec['rows_per_block']}): "
+              f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
               f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
-              f"({rec['bound_by']}); sparse.mm vs plain {rec['library_rel_err']:.1e}")
+              f"({rec['bound_by']}); device only (graph replay) {rec['device_ms']:.4f} vs "
+              f"sparse.mm {rec['library_device_ms']:.4f}; sparse.mm vs plain "
+              f"{rec['library_rel_err']:.1e}")
+        if batch == 1:
+            rec["host_us"] = dia_host_us(dlayout, dband, pv, csr)
+            print("    host us per call (2,000 calls, synchronised before and after): " +
+                  ", ".join(f"{k} {v:.1f}" for k, v in rec["host_us"].items()))
         main_dia.append(rec)
     del csr
     report["main_dia"] = main_dia
@@ -823,34 +928,42 @@ def main():
     crossover = []
     v128 = torch.randn((dlayout.num_nodes, 128), generator=gen, device=dev)
     pms, s_blocks, nrb = panel_ms(smodel.kernel.graph, dcoeffs, v128)
+    k4 = main_dia[-1]  # B = 128, the probes' width
     crossover.append({"k": 8, "num_offsets": dlayout.num_offsets, "halfwidth": dlayout.halfwidth,
-                      "batch": 128, "dia_ms": main_dia[-1]["ms"], "panel_ms": pms,
-                      "max_blocks": s_blocks, "num_row_blocks": nrb})
+                      "batch": 128, "dia_ms": k4["ms"], "template": k4["template"],
+                      "library_ms": k4["library_ms"], "bound_ms": k4["bound_ms"],
+                      "panel_ms": pms, "max_blocks": s_blocks, "num_row_blocks": nrb})
     del smodel, sparams, dband, v128
     torch.cuda.empty_cache()
-    # the k = 16 curve: DIA forced (128 offsets allowed) against panels
+    # the k = 16 and k = 24 curves: DIA forced (128 offsets allowed) against panels
     xc, _ = curve_points(262_144, seed=0)
-    g16 = build_graph(xc, 16, device=dev)
-    c16 = laplacian_coeffs(g16, 2.0 * float(g16.sqdist.median().sqrt()))
-    l16 = dia.build_dia_layout(g16, max_offsets=128)
-    if l16 is None:
-        fail("the k=16 curve has no DIA layout even with 128 offsets")
-    b16 = dia.assemble(l16, c16.diag, c16.triu)
-    v16 = torch.randn((l16.num_nodes, 128), generator=gen, device=dev)
-    pv16 = dia.permute_in(l16, v16).contiguous()
-    compare_dia(l16, b16, pv16, "k16 curve float32")
-    dms = dia_timing(l16, b16, pv16)["ms"]
-    pms, s_blocks, nrb = panel_ms(g16, c16, v16)
-    crossover.append({"k": 16, "num_offsets": l16.num_offsets, "halfwidth": l16.halfwidth,
-                      "batch": 128, "dia_ms": dms, "panel_ms": pms, "max_blocks": s_blocks,
-                      "num_row_blocks": nrb})
+    for k_wide in (16, 24):
+        gk = build_graph(xc, k_wide, device=dev)
+        ck = laplacian_coeffs(gk, 2.0 * float(gk.sqdist.median().sqrt()))
+        lk = dia.build_dia_layout(gk, max_offsets=128)
+        if lk is None:
+            fail(f"the k={k_wide} curve has no DIA layout even with 128 offsets")
+        bk = dia.assemble(lk, ck.diag, ck.triu)
+        vk = torch.randn((lk.num_nodes, 128), generator=gen, device=dev)
+        pvk = dia.permute_in(lk, vk).contiguous()
+        rec = compare_dia(lk, bk, pvk, f"k{k_wide} curve float32")
+        csr = band_csr(lk, bk)
+        rec.update(dia_timing(lk, bk, pvk, csr))
+        del csr
+        pms, s_blocks, nrb = panel_ms(gk, ck, vk)
+        crossover.append({"k": k_wide, "num_offsets": lk.num_offsets, "halfwidth": lk.halfwidth,
+                          "batch": 128, "dia_ms": rec["ms"], "template": rec["template"],
+                          "library_ms": rec["library_ms"], "bound_ms": rec["bound_ms"],
+                          "max_rel_err": rec["dia_matvec_call"]["max_rel_err"],
+                          "panel_ms": pms, "max_blocks": s_blocks, "num_row_blocks": nrb})
+        del gk, ck, lk, bk, vk, pvk
+        torch.cuda.empty_cache()
     for row in crossover:
         print(f"  crossover k={row['k']}: D={row['num_offsets']} W={row['halfwidth']} DIA "
-              f"{row['dia_ms']:.4f} ms vs block-ELL f32 panels {row['panel_ms']:.4f} ms "
+              f"{row['dia_ms']:.4f} ms ({row['template']}; sparse.mm {row['library_ms']:.4f}, "
+              f"bound {row['bound_ms']:.4f}) vs block-ELL f32 panels {row['panel_ms']:.4f} ms "
               f"(S={row['max_blocks']}) at B={row['batch']}")
     report["dia_vs_panels"] = crossover
-    del g16, c16, l16, b16, v16, pv16
-    torch.cuda.empty_cache()
 
     # -- phase 9: 16,384-point curve against the JAX pins -------------------
     print("== phase 9: the 16,384-point curve, held to the JAX pins")
@@ -901,7 +1014,6 @@ def main():
     bwd = next(r for r in main_bwd if r["batch"] == 48 and r["out_dtype"] == "float32")
     if min(launches, train_fwd, train_bwd, curve_counts["dia_launches"]) <= 0:
         fail("a kernel of a main path was never launched on it")
-    k4 = main_dia[-1]  # B = 128, the probes' width
     kernels = [{
         "name": "block_ell_spmv",
         "route": "cuda",
@@ -956,15 +1068,22 @@ def main():
         "launches_by_path": {"curve_train": curve_counts["dia_launches"],
                              "curve_serve": sres["launches"]["dia_launches"]},
         "max_abs_err": k4["dia_matvec_call"]["max_abs_err"],
+        "max_rel_err": k4["dia_matvec_call"]["max_rel_err"],
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],
         "band": "float32",
+        "template": k4["template"],
+        "device_ms": k4["device_ms"],
+        "library_device_ms": k4["library_device_ms"],
         "shape": [dlayout.num_padded, dlayout.num_offsets, 128],
         "other_shapes": [
-            {k: r[k] for k in ("batch", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            {k: r[k] for k in ("batch", "template", "ms", "device_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "library_device_ms")}
+            | {"max_rel_err": r["dia_matvec_call"]["max_rel_err"]}
+            | {k: r[k] for k in ("host_us",) if k in r}
             for r in main_dia if r is not k4
         ],
     }]

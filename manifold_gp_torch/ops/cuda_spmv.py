@@ -163,7 +163,8 @@ def _load():
             dia.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p,
             ]
             dia.restype = ctypes.c_int
             _lib = lib

@@ -22,22 +22,27 @@ Layout contract (the JAX package's, so the tests compare the arrays):
 
 ``dia_matvec_call`` launches the CUDA kernel K4 (``csrc/dia_spmv.cu``) for
 CUDA tensors and runs ``matvec_permuted`` (one ``torch.roll`` per offset)
-for CPU tensors; ``dia_launch_count`` counts the kernel's launches. The
-TPU's pad-the-batch-to-128 step does not carry over: the kernel masks a
-ragged batch. ``make_matvec_ad`` is the differentiable matvec: forward K4,
+for CPU tensors; ``dia_launch_count`` counts the kernel's launches.
+``dia_plan`` picks K4's template (row, window or general) and its row
+blocking from the layout's shape and the batch. The TPU's
+pad-the-batch-to-128 step does not carry over: the kernel masks a ragged
+batch. ``make_matvec_ad`` is the differentiable matvec: forward K4,
 ``bar_pv = K4(band, g)`` (the operator is symmetric), ``bar_band`` in plain
 PyTorch, as the JAX package computes it in XLA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import cuda_spmv
 from .graph import SparseGraph
 
 TILE = 512  # leading halo size; Npd is a multiple of it
@@ -47,6 +52,18 @@ BAND_WIDTH = 128  # stored lanes per band row
 dia_launch_count = 0
 
 _BAND_MODES = {torch.float32: 0, torch.bfloat16: 1}
+_KINDS = {"row": 0, "general": 1, "window": 2}  # K4's templates, as the C entry numbers them
+# K4's block shape, as csrc/dia_spmv.cu names it: threads per block
+# (kThreads), batch columns a block covers (kChunk; wider batches take
+# several) and rows a thread sums in registers (kRows; the window and
+# general templates).
+_THREADS = 256
+_CHUNK = 128
+_ROWS = 8
+# The most shared memory dia_plan gives a K4 block: two such blocks fit on
+# an H100 SM (228 KB, 1 KB of it reserved per block). The curves' row runs
+# take less (49 KB at B = 128: four blocks, whose copies and FMAs overlap).
+_SMEM_BUDGET = 113 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +129,44 @@ def build_dia_layout(graph: SparseGraph, max_offsets: int = 24,
     )
 
 
+# Offsets of the synthetic layouts K4's general template is checked on:
+# gapped within +-TILE, and (spread_offsets) BAND_WIDTH of them within +-TILE.
+GAPPED_OFFSETS = (-512, -300, -7, -1, 0, 1, 7, 300, 512)
+
+
+def spread_offsets(seed: int = 5) -> Tuple[int, ...]:
+    """BAND_WIDTH distinct offsets within +-TILE: 0, +-TILE and the rest
+    drawn with ``seed`` from within +-(TILE - 1)."""
+    inner = np.setdiff1d(np.arange(1 - TILE, TILE), [0])
+    drawn = np.random.default_rng(seed).choice(inner, BAND_WIDTH - 3, replace=False)
+    return tuple(sorted([-TILE, 0, TILE, *drawn.tolist()]))
+
+
+def layout_from_offsets(offsets, num_nodes: int, device=None) -> DiaLayout:
+    """The DIA layout of an N-node operator already in band order (identity
+    permutation) with these diagonal offsets, for an operator given by its
+    bands rather than by a graph (it has no edge slots). Offsets are sorted
+    and must include 0, with W = max |offset| <= TILE."""
+    offs = tuple(sorted(int(o) for o in offsets))
+    w = max(abs(o) for o in offs)
+    if 0 not in offs or w > TILE or len(offs) > BAND_WIDTH or len(set(offs)) != len(offs):
+        raise ValueError(f"layout_from_offsets: offsets must be distinct, include 0, at most "
+                         f"{BAND_WIDTH} of them within +-{TILE}; got {offs}")
+    npd = (-(-(TILE + num_nodes) // TILE) + 1) * TILE
+    perm = np.zeros(npd, np.int64)
+    perm[TILE:TILE + num_nodes] = np.arange(num_nodes)
+    rows = TILE + np.arange(num_nodes)
+
+    def dev(a):
+        return torch.as_tensor(a).to(device=device, dtype=torch.int64)
+
+    return DiaLayout(
+        perm=dev(perm), unperm=dev(rows), edge_flat=dev(np.zeros(0, np.int64)),
+        diag_flat=dev(rows * BAND_WIDTH + offs.index(0)), offsets=offs,
+        num_nodes=num_nodes, num_padded=int(npd), halfwidth=w,
+    )
+
+
 def assemble(layout: DiaLayout, diag: torch.Tensor, triu: torch.Tensor, dtype=None):
     """Scatter the Laplacian coefficients (L = diag - A_sym) into the band
     buffer [Npd, BAND_WIDTH], in ``dtype`` (None: the coefficients' type;
@@ -163,27 +218,90 @@ def _check(layout: DiaLayout, band: torch.Tensor, pv: torch.Tensor):
         raise ValueError(f"dia_spmv: band on {band.device}, operand on {pv.device}")
 
 
+class DiaPlan(NamedTuple):
+    """K4's launch plan: the template, the rows a thread sums in registers
+    and the rows a thread block stages."""
+
+    template: str  # "row" (B = 1), "window" (offsets filling [-W, W]) or "general"
+    rows_per_thread: int
+    rows_per_block: int
+
+
+def block_smem(template: str, num_offsets: int, halfwidth: int, batch: int,
+               band_itemsize: int, rows_per_block: int) -> int:
+    """Dynamic shared memory of one K4 block, the sum launch_window and
+    launch_general in ``csrc/dia_spmv.cu`` make: the band lanes [TR, D]
+    padded to 16-byte pieces, after the operand window [TR + 2W, float4
+    groups of min(B, 128) columns] f32 for the window template. The row
+    template stages nothing."""
+    if template == "row":
+        return 0
+    lanes = 16 // band_itemsize
+    band = rows_per_block * (-(-num_offsets // lanes) * lanes) * band_itemsize
+    if template == "general":
+        return band
+    return (rows_per_block + 2 * halfwidth) * 16 * (-(-min(batch, _CHUNK) // 4)) + band
+
+
+@functools.lru_cache(maxsize=256)
+def dia_plan(offsets: Tuple[int, ...], halfwidth: int, batch: int,
+             band_itemsize: int = 4) -> DiaPlan:
+    """K4's template and row blocking for a layout with these ``offsets``
+    and ``halfwidth`` at ``batch`` columns. B = 1 takes the row template.
+    Otherwise a thread owns 8 rows of one float4 column group, and a block
+    about one such row group per thread, within the shared-memory budget:
+    64 rows at B = 128 and 80 at B = 100, the fastest row runs on the H100
+    (PERF.md §6), small enough that four blocks share an SM. Layouts whose
+    offsets are exactly -W .. W take the window template (a staged operand
+    window, a sliding sum) where the window fits the budget; every other
+    layout takes the general template (band staged, operand read from
+    device memory)."""
+    if batch <= 0:
+        raise ValueError(f"dia_spmv: batch must be positive, got {batch}")
+    if batch == 1:
+        return DiaPlan("row", 1, _THREADS)
+    want = _ROWS * max(1, _THREADS // -(-min(batch, _CHUNK) // 4))
+
+    def most_rows(template):  # the most rows, in whole row groups, within the budget
+        fixed = block_smem(template, len(offsets), halfwidth, batch, band_itemsize, 0)
+        per_row = block_smem(template, len(offsets), halfwidth, batch, band_itemsize, 1) - fixed
+        return max(0, _SMEM_BUDGET - fixed) // per_row // _ROWS * _ROWS
+
+    if tuple(offsets) == tuple(range(-halfwidth, halfwidth + 1)):
+        block = min(want, most_rows("window"))
+        if block >= _ROWS:
+            return DiaPlan("window", _ROWS, block)
+    return DiaPlan("general", _ROWS, min(2 * want, most_rows("general")))
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_args(offsets: Tuple[int, ...], halfwidth: int, batch: int, itemsize: int):
+    """The C entry's layout and plan arguments, from d to rows_per_block."""
+    plan = dia_plan(offsets, halfwidth, batch, itemsize)
+    return ((ctypes.c_int * len(offsets))(*offsets), len(offsets), halfwidth,
+            _KINDS[plan.template], plan.rows_per_thread, plan.rows_per_block)
+
+
 def dia_matvec_cuda(layout: DiaLayout, band: torch.Tensor, pv: torch.Tensor):
     """Launch K4 on the current stream; raises on anything it does not take
     or on a refused launch."""
     global dia_launch_count
     _check(layout, band, pv)
-    if pv.device.type != "cuda":
+    device = pv.device
+    if device.type != "cuda":
         raise ValueError("dia_matvec_cuda: tensors must be on a CUDA device")
     if not (band.is_contiguous() and pv.is_contiguous()):
         raise ValueError("dia_matvec_cuda: band and operand must be contiguous")
-    from .cuda_spmv import _load
-
-    lib = _load()
-    d = layout.num_offsets
-    offsets = (ctypes.c_int * d)(*layout.offsets)
+    lib = cuda_spmv._lib or cuda_spmv._load()
     npd, batch = pv.shape
-    out = torch.empty((npd, batch), dtype=torch.float32, device=pv.device)
-    with torch.cuda.device(pv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dia_spmv(band.data_ptr(), pv.data_ptr(), out.data_ptr(), offsets, d,
-                           layout.halfwidth, npd, batch, BAND_WIDTH,
-                           _BAND_MODES[band.dtype], stream)
+    offsets, d, w, kind, rows, block = _launch_args(layout.offsets, layout.halfwidth, batch,
+                                                    band.element_size())
+    out = torch.empty((npd, batch), dtype=torch.float32, device=device)
+    with (contextlib.nullcontext() if device.index == torch.cuda.current_device()
+          else torch.cuda.device(device)):
+        err = lib.dia_spmv(band.data_ptr(), pv.data_ptr(), out.data_ptr(), offsets, d, w, npd,
+                           batch, BAND_WIDTH, _BAND_MODES[band.dtype], kind, rows, block,
+                           torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dia_spmv: launch failed with cudaError {err}")
     dia_launch_count += 1

@@ -204,6 +204,137 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(problem):
     assert tdia.dia_launch_count == before  # counted only where K4 launches
 
 
+# -- K4's launch plan and the plain version on gapped layouts ----------------
+
+K8_OFFSETS = tuple(range(-10, 11))  # the k = 8 curves' layout: D = 21 = 2W + 1
+
+
+def _plan_smem(plan, offsets, halfwidth, batch, itemsize, extra_rows=0):
+    return tdia.block_smem(plan.template, len(offsets), halfwidth, batch, itemsize,
+                           plan.rows_per_block + extra_rows)
+
+
+@pytest.mark.parametrize("template,d,w,batch,itemsize,rows,want", [
+    ("window", 21, 10, 128, 4, 64, (64 + 20) * 512 + 64 * 96),  # the curve at B = 128
+    ("window", 21, 10, 100, 4, 80, (80 + 20) * 400 + 80 * 96),  # 25 float4 groups
+    ("window", 21, 10, 200, 2, 64, (64 + 20) * 512 + 64 * 48),  # a 128-column chunk; bf16
+    ("window", 21, 10, 3, 4, 8, (8 + 20) * 16 + 8 * 96),  # one ragged group
+    ("general", 9, 512, 128, 4, 128, 128 * 48),  # band lanes only, 12 f32 a row
+    ("general", 128, 512, 37, 2, 64, 64 * 256),
+    ("row", 21, 10, 1, 4, 256, 0),
+])
+def test_block_smem(template, d, w, batch, itemsize, rows, want):
+    """K4's shared memory per block: the window [TR + 2W, 4 x groups] f32
+    before the band lanes [TR, D] padded to 16-byte pieces."""
+    assert tdia.block_smem(template, d, w, batch, itemsize, rows) == want
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 5, 8, 17, 33, 37, 64, 99, 100, 127, 128, 129, 200])
+def test_dia_plan_at_the_chip_check_widths(batch):
+    """The k = 8 curve (offsets -10 .. 10): B = 1 takes the row template;
+    wider batches the window template, 8 rows a thread, about one row group
+    per thread where the shared-memory budget of two blocks per SM allows
+    (at a few columns it caps the row run)."""
+    for itemsize in (4, 2):
+        plan = tdia.dia_plan(K8_OFFSETS, 10, batch, itemsize)
+        if batch == 1:
+            assert plan == tdia.DiaPlan("row", 1, 256)
+            continue
+        assert plan.template == "window" and plan.rows_per_thread == 8
+        assert plan.rows_per_block % 8 == 0
+        groups = -(-min(batch, 128) // 4)
+        items = plan.rows_per_block // 8 * groups
+        assert items <= 256
+        assert _plan_smem(plan, K8_OFFSETS, 10, batch, itemsize) <= tdia._SMEM_BUDGET
+        if items <= 256 - groups:  # short of a row group per thread: the budget's cap
+            assert _plan_smem(plan, K8_OFFSETS, 10, batch, itemsize, 8) > tdia._SMEM_BUDGET
+    # above 128 columns the block covers a 128-column chunk: same plan
+    if batch > 128:
+        assert tdia.dia_plan(K8_OFFSETS, 10, batch) == tdia.dia_plan(K8_OFFSETS, 10, 128)
+
+
+@pytest.mark.parametrize("offsets,halfwidth", [
+    (tdia.GAPPED_OFFSETS, 512),
+    (tdia.spread_offsets(), 512),
+    (tuple(o for o in range(-10, 11) if o != 3), 10),  # one gap
+    (tuple(range(-512, 512, 8)), 512),  # D = 128, every 8th shift
+])
+def test_dia_plan_sends_unfilled_layouts_to_the_general_template(offsets, halfwidth):
+    for batch in (2, 37, 128, 200):
+        plan = tdia.dia_plan(offsets, halfwidth, batch)
+        assert plan.template == "general" and plan.rows_per_thread == 8
+        assert plan.rows_per_block % 8 == 0
+        assert _plan_smem(plan, offsets, halfwidth, batch, 4) <= tdia._SMEM_BUDGET
+    assert tdia.dia_plan(offsets, halfwidth, 1).template == "row"
+
+
+def test_dia_plan_takes_the_window_for_every_filled_layout():
+    """Offsets exactly -W .. W take the window template at every width (with
+    D <= 128, W <= 63 and the window fits); the row runs chosen on the card
+    for the curves' main widths are 64 rows at B = 128 and 80 at B = 100."""
+    for w in (0, 10, 21, 33, 63):
+        offsets = tuple(range(-w, w + 1))
+        for batch in (2, 5, 17, 100, 128, 200):
+            for itemsize in (4, 2):
+                plan = tdia.dia_plan(offsets, w, batch, itemsize)
+                assert plan.template == "window"
+                assert plan.rows_per_block % plan.rows_per_thread == 0
+                assert _plan_smem(plan, offsets, w, batch, itemsize) <= tdia._SMEM_BUDGET
+    for w in (10, 21, 33):
+        offsets = tuple(range(-w, w + 1))
+        assert tdia.dia_plan(offsets, w, 128).rows_per_block == 64
+        assert tdia.dia_plan(offsets, w, 100).rows_per_block == 80
+    assert tdia.dia_plan((0,), 0, 5) == tdia.DiaPlan("window", 8, 1024)
+
+
+@pytest.mark.parametrize("batch", [0, -1])
+def test_dia_plan_refuses_empty_batches(batch):
+    with pytest.raises(ValueError, match="batch"):
+        tdia.dia_plan(K8_OFFSETS, 10, batch)
+
+
+def test_layout_from_offsets():
+    lay = tdia.layout_from_offsets((7, -300, 0, 512, -1), 3000, device="cpu")
+    assert lay.offsets == (-300, -1, 0, 7, 512)
+    assert (lay.halfwidth, lay.num_offsets, lay.num_nodes) == (512, 5, 3000)
+    assert lay.num_padded % tdia.TILE == 0 and lay.num_padded >= tdia.TILE + 3000 + 512
+    v = torch.arange(3000.0)[:, None]
+    pv = tdia.permute_in(lay, v)
+    assert not pv[:tdia.TILE].any() and not pv[tdia.TILE + 3000:].any()
+    np.testing.assert_array_equal(tdia.permute_out(lay, pv).numpy(), v.numpy())
+    band = tdia.assemble(lay, torch.ones(3000), torch.zeros(0))
+    assert band[tdia.TILE:tdia.TILE + 3000, 2].eq(1).all() and band.sum() == 3000
+    for bad in ((-1, 1), (0, 513), (0, 0, 1)):
+        with pytest.raises(ValueError, match="offsets"):
+            tdia.layout_from_offsets(bad, 100)
+
+
+@pytest.mark.parametrize("name", ["gapped", "wide"])
+@pytest.mark.parametrize("batch", [1, 37])
+def test_matvec_permuted_matches_csr_on_gapped_layouts(name, batch):
+    """The plain version K4 is held to on the card, on layouts that take
+    K4's general template (W = 512): against a scipy CSR product built from
+    the band's entries (random lanes in the true rows, zero halo rows)."""
+    offsets = tdia.GAPPED_OFFSETS if name == "gapped" else tdia.spread_offsets()
+    n = 3000
+    lay = tdia.layout_from_offsets(offsets, n, device="cpu")
+    d, npd = lay.num_offsets, lay.num_padded
+    rng = np.random.default_rng(d)
+    band = np.zeros((npd, tdia.BAND_WIDTH), np.float32)
+    band[tdia.TILE:tdia.TILE + n, :d] = rng.standard_normal((n, d))
+    pv = np.zeros((npd, batch), np.float32)
+    pv[tdia.TILE:tdia.TILE + n] = rng.standard_normal((n, batch))
+    rows = np.repeat(np.arange(npd), d)
+    cols = rows + np.tile(np.asarray(lay.offsets), npd)
+    vals = band[:, :d].ravel().astype(np.float64)
+    keep = (vals != 0) & (cols >= 0) & (cols < npd)
+    csr = sp.csr_matrix((vals[keep], (rows[keep], cols[keep])), shape=(npd, npd))
+    want = csr @ pv.astype(np.float64)
+    for got in (tdia.matvec_permuted(lay, torch.from_numpy(band), torch.from_numpy(pv)),
+                tdia.dia_matvec_call(lay, torch.from_numpy(band), torch.from_numpy(pv))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL * np.abs(want).max())
+
+
 # -- the training loss on a DIA layout --------------------------------------
 
 RAW = ("raw_graphbandwidth", "raw_lengthscale", "raw_noise", "raw_outputscale")
