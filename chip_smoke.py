@@ -43,23 +43,38 @@ Phases (any failure exits non-zero before the result line is printed):
   5. the 16,384-point serve held to the JAX package's numbers
      (examples_torch/serve_pins.json);
   6. the training slice: train_campaign at 262,144 points (3 epochs of
-     manifold_informed_train from the campaign's initial hyperparameters,
-     then one gradient at the initial and one at the trained
-     hyperparameters), launch counts reset just before and read just after;
-     requires >= 12 panel-cotangent and >= 150 forward launches per
-     gradient, finite loss and gradients and a loss that falls; then one
+     manifold_informed_train from the campaign's initial hyperparameters
+     with its rank-15 pivoted-Cholesky preconditioner rebuilt every 10
+     epochs, the same 3 epochs with Jacobi beside them, then at the initial
+     and at the trained hyperparameters, for pivoted Cholesky, Jacobi and
+     spectral deflation: the build, CG iterations, one gradient), launch
+     counts reset just before and read just after; requires >= 12
+     panel-cotangent and >= 150 forward launches per gradient, finite
+     losses and gradients and a loss that falls;
+  6a. the torus preconditioners side by side (from phase 6's records and
+     the phase's model): each pivoted-Cholesky build takes >= 90 forward
+     launches (15 composed matvecs x 6), the built M satisfies
+     ||M^-1 (L (L' x) + d x) - x|| / ||x|| <= 1e-4 on 4 random columns;
+     CG iterations on y and on 48 Rademacher columns and one gradient with
+     each preconditioner (deflation from phase 3's 100-mode basis at the
+     trained point, from a basis solved at the initial one); one mBCG loss
+     and gradient at the trained point beside the plain-SLQ loss; then one
      gradient with panel-space cotangents for its peak memory;
   7. the 16,384-point loss and gradients held to the JAX package's numbers
      (examples_torch/train_pins.json): edge-space cotangents to its "pins",
      panel-space cotangents over bf16 panels to its "pins_panel"; edge-
      against panel-space cotangents on the card, and a checkpointed run
      resumed on the card against the uninterrupted one;
+  7a. the same loss and gradients with the pivoted-Cholesky preconditioner
+     held to "pins_pivchol", and its loss to the Jacobi pin's (the
+     preconditioner enters only the gradient's solves);
   8. the curve training slice: train_campaign(manifold="curve", k=8) at
-     262,144 points (3 epochs on DIA bands, then one gradient at the initial
-     and one at the reached hyperparameters), every launch count reset just
-     before and read just after; requires >= 192 K4 launches per gradient
-     (32 Lanczos steps x 3 Neumann terms x nu = 2), no block-ELL launch,
-     finite losses and gradients, a loss that falls;
+     262,144 points (3 epochs on DIA bands with pivoted Cholesky, 3 with
+     Jacobi, then both preconditioners at the initial and at the reached
+     hyperparameters), every launch count reset just before and read just
+     after; requires >= 192 K4 launches per gradient (32 Lanczos steps x 3
+     Neumann terms x nu = 2), >= 90 per pivoted-Cholesky build, no
+     block-ELL launch, finite losses and gradients, a loss that falls;
   8a. serve the same curve on the host f64 basis at the hyperparameters
      phase 8 reached: finite outputs, RMSE vs truth below the label-noise
      floor;
@@ -104,6 +119,8 @@ EDGE_PANEL_RTOL = 5e-2  # of the largest gradient: the panel path rounds its
 K3_PER_GRADIENT = 12   # 2 terms (quad, Hutchinson) x 3 Neumann applies x nu = 2
 FWD_PER_GRADIENT = 150  # 24 Lanczos steps x 6 alone are 144
 K4_PER_GRADIENT = 192  # curve: 32 Lanczos steps x 3 Neumann applies x nu = 2
+PIVCHOL_BUILD = 90  # rank 15 x (3 Neumann applies x nu = 2) forward launches at B = 1
+PIVCHOL_INVARIANT = 1e-4  # ||M^-1 M x - x|| / ||x|| of the built preconditioner
 # K4's phase-2c widths: B = 1 (row template), up to 16 (row runs capped by
 # the shared-memory budget), 17-128, ragged float4 groups, and above 128
 # (column chunks).
@@ -363,11 +380,13 @@ def main():
     from manifold_gp_torch.ops.block_sparse import assemble, build_block_layout, permute_in
     from manifold_gp_torch.ops.laplacian import laplacian_coeffs
     from examples_torch.run_large import (
+        CAMPAIGN_HYPERS,
         CURVE_HYPERS,
         INITIAL_HYPERS,
         build_campaign,
         curve_points,
         launch_counts,
+        launches_since,
         layout_record,
         loss_and_grad,
         rademacher_numpy,
@@ -465,6 +484,9 @@ def main():
     result, params, model = serve_campaign(n=262_144, device=dev)
     launches = cuda_spmv.launch_count
     serve_bwd_launches = cuda_spmv.bwd_launch_count  # serving takes no gradient
+    # the served basis at the trained hyperparameters, kept for phase 6a's
+    # deflation (serve_campaign hands eval_basis the solved one)
+    served_basis = model.kernel.eval_basis(params)
     result["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
     result["spmv_launches"] = launches
     print("  " + json.dumps(result))
@@ -625,26 +647,33 @@ def main():
     # -- phase 6: the training slice at 262,144 points ----------------------
     print("== phase 6: train the 262,144-point torus")
     cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = 0
-    tres, tparams, tmodel = train_campaign(n=262_144, epochs=3, device=dev)
+    tres, tparams, tmodel = train_campaign(
+        n=262_144, epochs=3, device=dev,
+        deflation_bases={"initial": None, "trained": served_basis})
     train_fwd, train_bwd = cuda_spmv.launch_count, cuda_spmv.bwd_launch_count
     tres["spmv_launches"], tres["bwd_blocks_launches"] = train_fwd, train_bwd
-    print("  " + json.dumps({k: v for k, v in tres.items() if k != "epoch_log"}))
-    for row in tres["epoch_log"]:
-        print(f"  epoch {row['epoch']}: loss {row['loss']:.6f} in {row['seconds']:.3f} s  "
+    del served_basis
+    if tres["num_edges"] != result["num_edges"]:
+        fail(f"the training graph ({tres['num_edges']} edges) is not the served one "
+             f"({result['num_edges']}): phase 3's basis does not fit it")
+    print("  " + json.dumps({k: v for k, v in tres.items()
+                             if k not in ("epoch_log", "jacobi_epoch_log", "gradients")}))
+    for row, jrow in zip(tres["epoch_log"], tres["jacobi_epoch_log"]):
+        print(f"  epoch {row['epoch']}: loss {row['loss']:.6f} in {row['seconds']:.3f} s "
+              f"(Jacobi: {jrow['loss']:.6f} in {jrow['seconds']:.3f} s)  "
               f"noise {row['noise']:.5f} outputscale {row['outputscale']:.4f} "
               f"lengthscale {row['lengthscale']:.4f} graphbandwidth {row['graphbandwidth']:.4f}")
-    for label, rec in tres["gradients"].items():
-        print(f"  gradient at {label} hyperparameters: {rec['seconds']:.3f} s, "
-              f"CG iterations {rec['cg_iters']}, forward launches {rec['spmv_launches']}, "
-              f"panel-cotangent launches {rec['bwd_blocks_launches']}, loss {rec['loss']:.6f}")
-        if rec["bwd_blocks_launches"] < K3_PER_GRADIENT:
-            fail(f"{rec['bwd_blocks_launches']} panel-cotangent launches in the gradient at "
-                 f"{label} hyperparameters (< {K3_PER_GRADIENT})")
-        if rec["spmv_launches"] < FWD_PER_GRADIENT:
-            fail(f"{rec['spmv_launches']} forward launches in the gradient at {label} "
-                 f"hyperparameters (< {FWD_PER_GRADIENT})")
-    print(f"  training: {tres['s_per_epoch']:.3f} s per epoch (median), launches forward "
-          f"{tres['train_launches']['spmv_launches']} / panel-cotangent "
+    for label, recs in tres["gradients"].items():
+        for pname, rec in recs.items():
+            if rec["bwd_blocks_launches"] < K3_PER_GRADIENT:
+                fail(f"{rec['bwd_blocks_launches']} panel-cotangent launches in the {pname} "
+                     f"gradient at {label} hyperparameters (< {K3_PER_GRADIENT})")
+            if rec["spmv_launches"] < FWD_PER_GRADIENT:
+                fail(f"{rec['spmv_launches']} forward launches in the {pname} gradient at "
+                     f"{label} hyperparameters (< {FWD_PER_GRADIENT})")
+    print(f"  training ({tres['precond_type']}, rebuilt every {tres['precond_refresh']} epochs): "
+          f"{tres['s_per_epoch']:.3f} s per epoch (median; Jacobi {tres['jacobi_s_per_epoch']:.3f}), "
+          f"launches forward {tres['train_launches']['spmv_launches']} / panel-cotangent "
           f"{tres['train_launches']['bwd_blocks_launches']} over {tres['epochs']} epochs; "
           f"peak memory {tres['peak_mem_bytes'] / 1e9:.3f} GB (edge-space cotangents)")
     if not tres["finite"]:
@@ -653,8 +682,66 @@ def main():
         fail("the panel-cotangent kernel launched fewer than 12 times per epoch")
     if tres["train_launches"]["spmv_launches"] < FWD_PER_GRADIENT * tres["epochs"]:
         fail("the forward kernel launched fewer than 150 times per epoch")
-    if not tres["history"][-1] < tres["history"][0]:
-        fail(f"the training loss did not fall: {tres['history']}")
+    for name in ("history", "jacobi_history"):
+        if not tres[name][-1] < tres[name][0]:
+            fail(f"the training loss did not fall: {name} {tres[name]}")
+
+    print("== phase 6a: the torus preconditioners side by side")
+    from examples_torch.run_large import build_precond
+
+    for label, recs in tres["gradients"].items():
+        for pname, rec in recs.items():
+            extra = (f", basis solved in {rec['basis_s']:.2f} s" if "basis_s" in rec else "")
+            print(f"  {label:<7} {pname:<9} build {rec['build_s'] * 1e3:8.1f} ms "
+                  f"({rec['build_launches']['spmv_launches']} forward launches{extra}); CG "
+                  f"iterations y {rec['cg_iters']['y']}, 48 columns {rec['cg_iters']['columns']}; "
+                  f"gradient {rec['seconds']:.3f} s, forward {rec['spmv_launches']}, "
+                  f"panel-cotangent {rec['bwd_blocks_launches']}, loss {rec['loss']:.6f}")
+        if recs["pivchol"]["build_launches"]["spmv_launches"] < PIVCHOL_BUILD:
+            fail(f"the pivoted-Cholesky build at {label} hyperparameters launched the forward "
+                 f"kernel {recs['pivchol']['build_launches']['spmv_launches']} times "
+                 f"(< {PIVCHOL_BUILD})")
+    invariant = {}
+    for label, hypers in (("initial", INITIAL_HYPERS), ("trained", CAMPAIGN_HYPERS)):
+        pobj, build_s, build_launches = build_precond(tmodel, tmodel.init_params(**hypers),
+                                                      "pivchol")
+        x = torch.randn((tmodel.num_data, 4), generator=gen, device=dev)
+        mx = pobj.L @ (pobj.L.T @ x) + pobj.d[:, None] * x
+        err = float(torch.linalg.norm(pobj.apply(mx) - x) / torch.linalg.norm(x))
+        invariant[label] = {"rel_err": err, "build_s": build_s, "build_launches": build_launches,
+                            "rank": int(pobj.L.shape[1]),
+                            "d_min": float(pobj.d.min()), "d_max": float(pobj.d.max())}
+        print(f"  {label}: rebuilt in {build_s * 1e3:.1f} ms "
+              f"({build_launches['spmv_launches']} forward launches); "
+              f"||M^-1 M x - x|| / ||x|| = {err:.2e} (threshold {PIVCHOL_INVARIANT:.0e})")
+        if build_launches["spmv_launches"] < PIVCHOL_BUILD:
+            fail(f"a pivoted-Cholesky build launched the forward kernel "
+                 f"{build_launches['spmv_launches']} times (< {PIVCHOL_BUILD})")
+        if not err <= PIVCHOL_INVARIANT:
+            fail(f"the pivoted-Cholesky preconditioner at {label} hyperparameters misses "
+                 f"its invariant: {err:.2e}")
+        del pobj, x, mx
+    cfg = tmodel.cfg
+    tmodel.cfg = cfg.replace(slq_precond_quadrature=True)
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mbcg_loss, mbcg_grads = loss_and_grad(tmodel, tmodel.init_params(**CAMPAIGN_HYPERS),
+                                          generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    mbcg = {"loss": mbcg_loss, "grads": mbcg_grads, "seconds": time.perf_counter() - t0,
+            **launches_since(before),
+            "plain_slq_loss": tres["gradients"]["trained"]["pivchol"]["loss"]}
+    tmodel.cfg = cfg
+    print(f"  mBCG at the trained hyperparameters (pivoted Cholesky built inside): loss "
+          f"{mbcg_loss:.6f} against the plain quadrature's {mbcg['plain_slq_loss']:.6f}; "
+          f"{mbcg['seconds']:.3f} s, forward {mbcg['spmv_launches']}, panel-cotangent "
+          f"{mbcg['bwd_blocks_launches']}; gradients {mbcg_grads}")
+    if not all(v == v and abs(v) != float("inf")
+               for v in (mbcg_loss, *[g for g in mbcg_grads.values() if g is not None])):
+        fail(f"non-finite mBCG loss or gradient: {mbcg_loss} {mbcg_grads}")
+    tres["precond_invariant"], tres["mbcg"] = invariant, mbcg
+
     # the same gradient with panel-space cotangents, for its peak memory
     tmodel.kernel.cfg = tmodel.kernel.cfg.replace(solve_cotangent="panel")
     del tparams
@@ -708,6 +795,14 @@ def main():
                 for label, pin in tpins["pins"].items()
             }
             parity[f"peak_mem_bytes_{mode}"] = int(torch.cuda.max_memory_allocated(dev))
+        # phase 7a's numbers: edge-space cotangents, pivoted Cholesky
+        camp.model.kernel.cfg = camp.model.kernel.cfg.replace(solve_cotangent="edge")
+        camp.model.cfg = camp.model.cfg.replace(precond_type="pivchol")
+        by_mode["pivchol"] = {
+            label: loss_and_grad(camp.model, camp.model.init_params(**pin["hypers"]),
+                                 probes=probes)
+            for label, pin in tpins["pins_pivchol"].items()
+        }
     finally:
         torch.use_deterministic_algorithms(False)
     del camp, probes
@@ -786,6 +881,26 @@ def main():
         fail(f"a resumed run does not reproduce the uninterrupted one: {resumed} vs {straight}")
     print(f"  peak memory at 16k: edge {parity['peak_mem_bytes_edge'] / 1e9:.3f} GB, "
           f"panel {parity['peak_mem_bytes_panel'] / 1e9:.3f} GB")
+    print("== phase 7a: loss and gradients at 16,384 points with pivoted Cholesky, "
+          "held to the JAX pins")
+    for label, pin in tpins["pins_pivchol"].items():
+        loss, grads = by_mode["pivchol"][label]
+        rel = abs(loss - pin["loss"]) / abs(pin["loss"])
+        jac_rel = abs(loss - tpins["pins"][label]["loss"]) / abs(tpins["pins"][label]["loss"])
+        gscale = max(abs(v) for v in pin["grads"].values())
+        gerr = max(abs(grads[k] - pin["grads"][k]) for k in raw_names) / gscale
+        parity[label]["pivchol"] = {"loss": loss, "grads": grads, "jax": pin, "loss_rel": rel,
+                                    "loss_rel_to_jacobi_pin": jac_rel, "grad_rel_of_max": gerr}
+        print(f"  {label}: loss port {loss:.7f} jax {pin['loss']:.7f} rel {rel:.2e}, against "
+              f"the Jacobi pin {jac_rel:.2e} (rtol {tpins['loss_rtol']}); gradients max diff / "
+              f"max |grad| {gerr:.2e} (rtol {tpins['grad_rtol']})")
+        if not all(v == v for v in grads.values() if v is not None):
+            fail(f"16k {label}: non-finite gradient with pivoted Cholesky")
+        if not (rel <= tpins["loss_rtol"] and jac_rel <= tpins["loss_rtol"]):
+            fail(f"16k {label} pivoted-Cholesky loss differs from the JAX pins by {rel:.2e} "
+                 f"(pivchol) / {jac_rel:.2e} (Jacobi)")
+        if not gerr <= tpins["grad_rtol"]:
+            fail(f"16k {label} pivoted-Cholesky gradients differ from the JAX pins by {gerr:.2e}")
     report["train_16k"] = parity
 
     # -- phase 8: the curve training slice at 262,144 points ------------------
@@ -795,23 +910,33 @@ def main():
     cres, _, cmodel = train_campaign(n=262_144, epochs=3, device=dev, manifold="curve", k=8)
     curve_counts = launch_counts()
     cres["launches"] = curve_counts
-    print("  " + json.dumps({k: v for k, v in cres.items() if k != "epoch_log"}))
+    print("  " + json.dumps({k: v for k, v in cres.items()
+                             if k not in ("epoch_log", "jacobi_epoch_log", "gradients")}))
     print(f"  layout: DIA, D={cres['num_offsets']} offsets, halfwidth W={cres['halfwidth']}, "
           f"Npd={cres['num_padded']} rows, band {cres['band_bytes_f32'] / 1e6:.1f} MB stored "
           f"({cres['band_bytes_used_f32'] / 1e6:.1f} MB in the D used lanes)")
-    for row in cres["epoch_log"]:
-        print(f"  epoch {row['epoch']}: loss {row['loss']:.6f} in {row['seconds']:.3f} s  "
+    for row, jrow in zip(cres["epoch_log"], cres["jacobi_epoch_log"]):
+        print(f"  epoch {row['epoch']}: loss {row['loss']:.6f} in {row['seconds']:.3f} s "
+              f"(Jacobi: {jrow['loss']:.6f} in {jrow['seconds']:.3f} s)  "
               f"noise {row['noise']:.5f} outputscale {row['outputscale']:.4f} "
               f"lengthscale {row['lengthscale']:.4f} graphbandwidth {row['graphbandwidth']:.4f}")
     if cres["layout"] != "dia":
         fail(f"the k=8 curve did not take the DIA layout: {cres['layout']}")
-    for label, rec in cres["gradients"].items():
-        print(f"  gradient at {label} hyperparameters: {rec['seconds']:.3f} s, CG iterations "
-              f"{rec['cg_iters']}, K4 launches {rec['dia_launches']}, loss {rec['loss']:.6f}")
-        if rec["dia_launches"] < K4_PER_GRADIENT:
-            fail(f"{rec['dia_launches']} K4 launches in the curve gradient at {label} "
-                 f"hyperparameters (< {K4_PER_GRADIENT})")
-    print(f"  training: {cres['s_per_epoch']:.3f} s per epoch (median), K4 launches "
+    for label, recs in cres["gradients"].items():
+        for pname, rec in recs.items():
+            print(f"  {label:<7} {pname:<7} build {rec['build_s'] * 1e3:7.1f} ms "
+                  f"({rec['build_launches']['dia_launches']} K4 launches); CG iterations y "
+                  f"{rec['cg_iters']['y']}, 128 columns {rec['cg_iters']['columns']}; gradient "
+                  f"{rec['seconds']:.3f} s, K4 launches {rec['dia_launches']}, "
+                  f"loss {rec['loss']:.6f}")
+            if rec["dia_launches"] < K4_PER_GRADIENT:
+                fail(f"{rec['dia_launches']} K4 launches in the curve {pname} gradient at {label} "
+                     f"hyperparameters (< {K4_PER_GRADIENT})")
+        if recs["pivchol"]["build_launches"]["dia_launches"] < PIVCHOL_BUILD:
+            fail(f"the curve's pivoted-Cholesky build at {label} hyperparameters launched K4 "
+                 f"{recs['pivchol']['build_launches']['dia_launches']} times (< {PIVCHOL_BUILD})")
+    print(f"  training ({cres['precond_type']}): {cres['s_per_epoch']:.3f} s per epoch (median; "
+          f"Jacobi {cres['jacobi_s_per_epoch']:.3f}), K4 launches "
           f"{cres['train_launches']['dia_launches']} over {cres['epochs']} epochs, "
           f"{curve_counts['dia_launches']} in the phase; peak memory "
           f"{cres['peak_mem_bytes'] / 1e9:.3f} GB")
@@ -821,8 +946,9 @@ def main():
         fail("K4 launched fewer than 192 times per epoch")
     if not cres["finite"]:
         fail("non-finite loss or gradient in the 262k curve training phase")
-    if not cres["history"][-1] < cres["history"][0]:
-        fail(f"the curve training loss did not fall: {cres['history']}")
+    for name in ("history", "jacobi_history"):
+        if not cres[name][-1] < cres[name][0]:
+            fail(f"the curve training loss did not fall: {name} {cres[name]}")
     report["curve_train_262k"] = cres
     del cmodel
     torch.cuda.empty_cache()
@@ -1021,7 +1147,10 @@ def main():
         "replaces": "manifold_gp_tpu/ops/pallas_spmv.py:207",
         "also_replaces": "manifold_gp_tpu/ops/pallas_spmv.py:126",
         "launches": launches,
-        "launches_by_path": {"serve": launches, "train": train_fwd},
+        "launches_by_path": {
+            "serve": launches, "train": train_fwd,
+            "precond_build": tres["gradients"]["trained"]["pivchol"]["build_launches"][
+                "spmv_launches"]},
         "max_abs_err": f32["stream_matvec_call"]["max_abs_err"],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -1066,7 +1195,9 @@ def main():
         "replaces": "manifold_gp_tpu/ops/dia.py:192",
         "launches": curve_counts["dia_launches"],
         "launches_by_path": {"curve_train": curve_counts["dia_launches"],
-                             "curve_serve": sres["launches"]["dia_launches"]},
+                             "curve_serve": sres["launches"]["dia_launches"],
+                             "curve_precond_build": cres["gradients"]["trained"]["pivchol"][
+                                 "build_launches"]["dia_launches"]},
         "max_abs_err": k4["dia_matvec_call"]["max_abs_err"],
         "max_rel_err": k4["dia_matvec_call"]["max_rel_err"],
         "ms": k4["ms"],
@@ -1094,7 +1225,8 @@ def main():
     print(f"total {report['total_s']:.1f} s; details in {OUT.relative_to(ROOT)}")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where one training gradient of the campaign spends its time on the card.
 
-Builds the campaign (``run_large.build_campaign`` on the torus or the curve,
-Jacobi preconditioner),
-takes one ``mll_loss`` gradient to warm up (kernel build, cuSOLVER handles),
-then traces a second one with ``torch.profiler`` and prints one JSON line:
+Builds the campaign (``run_large.build_campaign`` on the torus or the curve)
+and its preconditioner (``--precond``: Jacobi, or the campaign's pivoted
+Cholesky, built once outside the traced gradient and passed in, as a
+``precond_refresh`` epoch uses it), takes one ``mll_loss`` gradient to warm
+up (kernel build, cuSOLVER handles), then traces a second one with
+``torch.profiler`` and prints one JSON line:
 the wall time of the traced gradient, the summed device time of every kernel
 and memcpy, the device's busy and idle share of the wall time, and the
 largest kernels by device time with their launch counts.
@@ -12,6 +14,7 @@ largest kernels by device time with their launch counts.
   python examples_torch/profile_gradient.py --n 262144              # initial hyperparameters
   python examples_torch/profile_gradient.py --n 262144 --trained    # where CG runs long
   python examples_torch/profile_gradient.py --n 262144 --manifold curve   # DIA bands, K4
+  python examples_torch/profile_gradient.py --n 262144 --trained --precond pivchol
 """
 
 from __future__ import annotations
@@ -28,23 +31,26 @@ from examples_torch.run_large import (  # noqa: E402
     INITIAL_HYPERS,
     MANIFOLDS,
     build_campaign,
+    build_precond,
     loss_and_grad,
 )
 
 
-def profile_gradient(n: int, trained: bool, top: int = 12, manifold: str = "torus") -> dict:
+def profile_gradient(n: int, trained: bool, top: int = 12, manifold: str = "torus",
+                     precond: str = "jacobi") -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    camp = build_campaign(n=n, device="cuda", manifold=manifold, precond_type="jacobi")
+    camp = build_campaign(n=n, device="cuda", manifold=manifold, precond_type=precond)
     model = camp.model
     params = model.init_params(**(MANIFOLDS[manifold]["hypers"] if trained else INITIAL_HYPERS))
+    pobj, build_s, _ = build_precond(model, params, precond)
     generator = torch.Generator(device=model.device).manual_seed(1)
-    loss_and_grad(model, params, generator=generator)
+    loss_and_grad(model, params, generator=generator, precond_override=pobj)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss, _ = loss_and_grad(model, params, generator=generator)
+        loss, _ = loss_and_grad(model, params, generator=generator, precond_override=pobj)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -55,6 +61,8 @@ def profile_gradient(n: int, trained: bool, top: int = 12, manifold: str = "toru
         "n": n,
         "manifold": manifold,
         "hyperparameters": "trained" if trained else "initial",
+        "precond": precond,
+        "precond_build_s": build_s,
         "device": torch.cuda.get_device_name(0),
         "loss": loss,
         "wall_ms": wall_ms,
@@ -72,8 +80,10 @@ def main():
     ap.add_argument("--trained", action="store_true",
                     help="the campaign's trained hyperparameters instead of the initial ones")
     ap.add_argument("--manifold", choices=sorted(MANIFOLDS), default="torus")
+    ap.add_argument("--precond", choices=("jacobi", "pivchol"), default="jacobi")
     args = ap.parse_args()
-    print(json.dumps(profile_gradient(args.n, args.trained, manifold=args.manifold)))
+    print(json.dumps(profile_gradient(args.n, args.trained, manifold=args.manifold,
+                                      precond=args.precond)))
 
 
 if __name__ == "__main__":

@@ -15,8 +15,11 @@ the campaign, and its InferenceConfig for that manifold:
     bands (``use_dia=True``; the RCM ordering has 21 diagonals), f32 bands,
     panel-space solve cotangents, 128 probes, 32 Lanczos steps, the float64
     shift-invert basis on the host (``eigensolver="host_f64"``: the curve's
-    low band lies below the f32 assembly noise floor), and the Jacobi
-    preconditioner (pivoted Cholesky is not ported).
+    low band lies below the f32 assembly noise floor).
+
+Both train with the campaign's preconditioner, a rank-15 pivoted Cholesky of
+the composed operator (``precond_type="pivchol"``), rebuilt every 10 epochs
+(``precond_refresh=10``), as ``examples/run_large.py`` does.
 
 ``serve_campaign``: given hyperparameters (default: the trained values of
 the 262k torus campaign), one basis solve and the evaluation tail: test
@@ -24,8 +27,11 @@ RMSE/NLL on the noisy labels and the posterior mean's RMSE against the
 known truth.
 
 ``train_campaign``: precision-form MLL training (``manifold_informed_train``)
-from the campaign's initial hyperparameters, with the Jacobi preconditioner,
-then one loss-and-gradient at the trained hyperparameters.
+from the campaign's initial hyperparameters, the same epochs again with the
+Jacobi preconditioner beside them, then at the initial and at the trained
+hyperparameters, for each preconditioner (pivoted Cholesky, Jacobi, and
+spectral deflation where a basis is given): its build, CG iterations and one
+loss-and-gradient (``precond_comparison``).
 
 Usage:
   python examples_torch/run_large.py                 # serve 262,144 points, CUDA
@@ -197,7 +203,7 @@ def build_campaign(n: int = 262_144, device="cuda", k: int = None, num_test: int
         cfg = InferenceConfig(
             max_cholesky=0, dense_operator_max_size=0, num_probes=128,
             lanczos_max_iter=32, cg_tolerance=1e-2, cg_max_iter=200,
-            precond_type="jacobi", spmv_dtype="float32",
+            precond_type="pivchol", spmv_dtype="float32",
             solve_cotangent="panel", use_dia=True, eigensolver="host_f64",
         )
     cfg = cfg.replace(**cfg_overrides)
@@ -353,13 +359,17 @@ class EpochLog:
         self._t = now
 
 
-def loss_and_grad(model, params, generator=None, probes=None):
+PRECOND_REFRESH = 10  # epochs between pivoted-Cholesky rebuilds (the campaign's)
+
+
+def loss_and_grad(model, params, generator=None, probes=None, precond_override=None):
     """One ``mll_loss`` value and its gradients w.r.t. every raw parameter
     (None where the loss does not reach one): (float, {name: float})."""
     import torch
 
     leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
-    loss = model.mll_loss(leaves, generator=generator, probes=probes)
+    loss = model.mll_loss(leaves, generator=generator, probes=probes,
+                          precond_override=precond_override)
     names = list(leaves)
     grads = torch.autograd.grad(loss, [leaves[k] for k in names], allow_unused=True)
     return float(loss.detach()), {
@@ -367,32 +377,95 @@ def loss_and_grad(model, params, generator=None, probes=None):
     }
 
 
-def cg_iterations(model, params, rhs) -> int:
+def cg_iterations(model, params, rhs, precond=None) -> int:
     """CG iterations of one solve with the composed noisy precision at the
-    campaign's tolerance, preconditioned as training's solves are."""
+    campaign's tolerance, preconditioned by ``precond`` (a preconditioner
+    object), else by the config's, built on the composed operator as
+    training's solves are."""
     import torch
 
     from manifold_gp_torch.ops.cg import cg_raw
 
     with torch.no_grad():
         mv = model.precision_matvec(params)
+        if precond is None:
+            precond = model.precision_precond_obj(params, matvec=mv)
         _, iters = cg_raw(mv, rhs, tol=model.cfg.cg_tolerance, max_iter=model.cfg.cg_max_iter,
-                          precond=model.precision_precond(params), with_info=True)
+                          precond=None if precond is None else precond.apply, with_info=True)
     return iters
+
+
+def build_precond(model, params, kind: str, basis=None):
+    """The preconditioner ``kind`` ("jacobi", "pivchol" or "deflation", the
+    last from ``basis``) for the composed noisy precision at ``params``, with
+    the host seconds and kernel launches of its build."""
+    device = model.device
+    before = launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    if kind == "deflation":
+        obj = model.deflation_precond(params, basis=basis)
+    else:
+        cfg = model.cfg
+        model.cfg = cfg.replace(precond_type=kind)
+        try:
+            obj = model.build_precond(params)
+        finally:
+            model.cfg = cfg
+    _sync(device)
+    return obj, time.perf_counter() - t0, launches_since(before)
+
+
+def precond_comparison(model, params, kinds=("pivchol", "jacobi"), basis=None,
+                       num_columns: int = 0, seed: int = 0) -> dict:
+    """For each preconditioner kind at ``params``: its build (seconds,
+    launches), CG iterations on the labels y and on ``num_columns``
+    Rademacher columns, and one loss-and-gradient with it passed in (as a
+    ``precond_refresh`` epoch uses it: the build is not inside), with its
+    seconds and launches. Every kind draws the same SLQ probes."""
+    import torch
+
+    from manifold_gp_torch.ops.slq import rademacher_probes
+
+    device = model.device
+    rhs = {"y": model.train_y}
+    if num_columns:
+        rhs["columns"] = rademacher_probes(torch.Generator(device=device).manual_seed(seed),
+                                           model.num_data, num_columns)
+    out = {}
+    for kind in kinds:
+        obj, build_s, build_launches = build_precond(model, params, kind, basis=basis)
+        rec = {"build_s": build_s, "build_launches": build_launches,
+               "cg_iters": {name: cg_iterations(model, params, r, precond=obj)
+                            for name, r in rhs.items()}}
+        generator = torch.Generator(device=device).manual_seed(seed + 1)
+        before = launch_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        value, grads = loss_and_grad(model, params, generator=generator, precond_override=obj)
+        _sync(device)
+        rec.update(loss=value, grads=grads, seconds=time.perf_counter() - t0,
+                   **launches_since(before))
+        out[kind] = rec
+    return out
 
 
 def train_campaign(n: int = 262_144, epochs: int = 3, device="cuda", k: int = None,
                    num_test: int = 2048, num_modes: int = None, seed: int = 0,
                    nu: int = 2, lr: float = 1e-1, trained_hypers: dict = None,
-                   verbose: bool = False, manifold: str = "torus"):
+                   verbose: bool = False, manifold: str = "torus",
+                   deflation_bases: dict = None):
     """Train the campaign's hyperparameters for ``epochs`` epochs from its
-    initial values, then take one loss-and-gradient at the initial values
-    and one at ``trained_hypers`` (default: the torus campaign's trained
+    initial values with its preconditioner (pivoted Cholesky, rebuilt every
+    ``PRECOND_REFRESH`` epochs), then the same epochs again with Jacobi; then
+    compare the preconditioners (``precond_comparison``) at the initial
+    values and at ``trained_hypers`` (default: the torus campaign's trained
     values, where CG runs long; for the curve, the values these epochs
     reached).
 
-    The campaign's configuration with the package's default preconditioner
-    (``precond_type="jacobi"``; the pivoted-Cholesky one is not ported).
+    ``deflation_bases``: {"initial" / "trained": basis or None} adds the
+    spectral deflation at those points, from the given basis (at those
+    hyperparameters) or, for None, from one solved here (timed).
     Returns (result dict, params, model): per-epoch loss, hyperparameters
     and seconds, CG iteration counts, the launch counts of the kernels per
     phase, and peak device memory."""
@@ -401,66 +474,81 @@ def train_campaign(n: int = 262_144, epochs: int = 3, device="cuda", k: int = No
     from manifold_gp_torch.utils import constrained_values, manifold_informed_train
 
     camp = build_campaign(n=n, device=device, k=k, num_test=num_test,
-                          num_modes=num_modes, seed=seed, nu=nu, manifold=manifold,
-                          precond_type="jacobi")
+                          num_modes=num_modes, seed=seed, nu=nu, manifold=manifold)
     k, num_modes = camp.model.kernel.nearest_neighbors, camp.model.kernel.num_modes
     model, timings = camp.model, camp.timings
     device = model.device
     on_card = device.type == "cuda"
     y = model.train_y
 
-    params = model.init_params(**INITIAL_HYPERS)
-    timings["cg_iters_initial"] = cg_iterations(model, params, y)
+    def train(precond_type, log):
+        cfg = model.cfg
+        model.cfg = cfg.replace(precond_type=precond_type)
+        try:
+            return manifold_informed_train(
+                model, model.init_params(**INITIAL_HYPERS), lr=lr, weight_decay=0.0,
+                max_iter=epochs - 1, tolerance=1e-2, num_rand_vec=100, verbose=verbose,
+                seed=seed, metrics=log, precond_refresh=PRECOND_REFRESH)
+        finally:
+            model.cfg = cfg
 
+    timings["cg_iters_initial"] = cg_iterations(model, model.init_params(**INITIAL_HYPERS), y)
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     log = EpochLog()
     before = launch_counts()
     t0 = time.perf_counter()
-    params, loss, history = manifold_informed_train(
-        model, params, lr=lr, weight_decay=0.0, max_iter=epochs - 1, tolerance=1e-2,
-        num_rand_vec=100, verbose=verbose, seed=seed, metrics=log,
-    )
+    params, loss, history = train(camp.cfg.precond_type, log)
     _sync(device)
     timings["train_s"] = time.perf_counter() - t0
     train_counts = launches_since(before)
     timings["s_per_epoch"] = float(np.median([r["seconds"] for r in log.rows]))
     timings["cg_iters_after_training"] = cg_iterations(model, params, y)
+    jacobi_log = EpochLog()
+    _, _, jacobi_history = train("jacobi", jacobi_log)
+    timings["jacobi_s_per_epoch"] = float(np.median([r["seconds"] for r in jacobi_log.rows]))
 
-    # one gradient at the initial and one at the trained hyperparameters,
-    # each with its own launch counts and time
     if trained_hypers is None:
         trained_hypers = (CAMPAIGN_HYPERS if manifold == "torus" else
                           {key: value for key, value in constrained_values(model, params).items()
                            if key != "mean_constant"})
-    generator = torch.Generator(device=device).manual_seed(seed + 1)
     gradients = {}
     for label, hypers in (("initial", INITIAL_HYPERS), ("trained", trained_hypers)):
         p = model.init_params(**hypers)
-        before = launch_counts()
-        _sync(device)
-        t0 = time.perf_counter()
-        value, grads = loss_and_grad(model, p, generator=generator)
-        _sync(device)
-        gradients[label] = {"loss": value, "grads": grads,
-                            "seconds": time.perf_counter() - t0, **launches_since(before),
-                            "cg_iters": cg_iterations(model, p, y)}
+        kinds, basis, basis_s = ("pivchol", "jacobi"), None, None
+        if deflation_bases is not None and label in deflation_bases:
+            kinds, basis = kinds + ("deflation",), deflation_bases[label]
+            if basis is None:
+                _sync(device)
+                t0 = time.perf_counter()
+                basis = model.kernel.eval_basis(p)
+                _sync(device)
+                basis_s = time.perf_counter() - t0
+        gradients[label] = precond_comparison(model, p, kinds=kinds, basis=basis,
+                                              num_columns=model.cfg.num_probes, seed=seed)
+        if basis_s is not None:
+            gradients[label]["deflation"]["basis_s"] = basis_s
+        del basis
 
-    values = [v for g in gradients.values() for v in (g["loss"], *g["grads"].values())
-              if v is not None]
+    values = [v for g in gradients.values() for rec in g.values()
+              for v in (rec["loss"], *rec["grads"].values()) if v is not None]
     result = {
         **layout_record(camp, n, k, num_modes),
         "manifold": manifold,
         "epochs": epochs,
         "trained_hypers": trained_hypers,
         "precond_type": camp.cfg.precond_type,
+        "precond_refresh": PRECOND_REFRESH,
         "history": history,
         "final_loss": loss,
         "epoch_log": log.rows,
+        "jacobi_history": jacobi_history,
+        "jacobi_epoch_log": jacobi_log.rows,
         "train_launches": train_counts,
         "gradients": gradients,
         "peak_mem_bytes": int(torch.cuda.max_memory_allocated(device)) if on_card else None,
-        "finite": bool(np.isfinite(history).all() and np.isfinite(values).all()),
+        "finite": bool(np.isfinite(history).all() and np.isfinite(jacobi_history).all()
+                       and np.isfinite(values).all()),
         **timings,
     }
     return result, params, model

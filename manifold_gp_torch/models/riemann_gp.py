@@ -16,8 +16,7 @@ K = s Z Z' + sigma^2 I and C = (sigma^2/s) I_m + Z'Z,
 — only m x m dense work (m = num_modes).
 
 Not ported yet: the semisupervised ``labeled`` mask, LOVE variances, the
-blend with a vanilla GP (``base_model``), the pivoted-Cholesky / deflation
-preconditioners and the preconditioned (mBCG) quadrature.
+blend with a vanilla GP (``base_model``).
 """
 
 from __future__ import annotations
@@ -146,20 +145,21 @@ class RiemannGP:
         return mv
 
     def precision_precond_obj(self, params, noise: bool = True, coeffs=None, matvec=None):
-        """Preconditioner OBJECT (``apply``) for the composed precision
-        operator, per cfg.precond_type: "jacobi" is diag(Q) pushed through
-        the Scale/Noise wrappers. None when cfg.cg_precondition is off or
-        precond_type == "none". Detached: a preconditioner never changes
-        solutions, so no gradient flows through it."""
+        """Preconditioner OBJECT (``ops.pivchol`` protocol: apply / sample /
+        logdet) for the composed precision operator, per cfg.precond_type:
+
+          * "jacobi": diag(Q) pushed through the Scale/Noise wrappers;
+          * "pivchol": rank-``cfg.precond_rank`` partial pivoted Cholesky of
+            the composed operator itself (``matvec``; without it, Jacobi, as
+            in the reference).
+
+        None when cfg.cg_precondition is off or precond_type == "none".
+        Detached: a preconditioner never changes solutions, so no gradient
+        flows through it."""
         cfg = self.cfg
         if not cfg.cg_precondition or cfg.precond_type == "none":
             return None
-        if cfg.precond_type != "jacobi":
-            raise NotImplementedError(
-                f"precond_type={cfg.precond_type!r} is not ported yet (ROADMAP queue 1, "
-                "'Preconditioners and the mBCG log-det'); use 'jacobi' or 'none'"
-            )
-        from ..ops.pivchol import DiagPrecond
+        from ..ops.pivchol import DiagPrecond, make_pivchol_precond
 
         with torch.no_grad():
             d = noisy_scaled_diag(
@@ -167,6 +167,8 @@ class RiemannGP:
                 scale=self.outputscale(params) if self.use_outputscale else None,
                 noise=self.noise(params) if noise else None,
             )
+        if cfg.precond_type == "pivchol" and matvec is not None:
+            return make_pivchol_precond(matvec, d, cfg.precond_rank)
         return DiagPrecond(d=d)
 
     def precision_precond(self, params, noise: bool = True, coeffs=None, matvec=None):
@@ -175,12 +177,71 @@ class RiemannGP:
         obj = self.precision_precond_obj(params, noise=noise, coeffs=coeffs, matvec=matvec)
         return None if obj is None else obj.apply
 
+    @torch.no_grad()
     def build_precond(self, params):
         """Freshly built config-selected preconditioner OBJECT for the
         composed noisy precision — the cacheable unit for ``precond_refresh``
-        training: rebuilding it every k epochs instead of every loss
-        evaluation changes only iteration counts, never gradients."""
-        return self.precision_precond_obj(params, noise=True)
+        training: pivchol costs ``precond_rank`` composed matvecs, and since
+        the object is detached, rebuilding it every k epochs instead of every
+        loss evaluation changes only iteration counts, never gradients."""
+        c = self.kernel.coeffs(params)
+        mv = self.precision_matvec(params, noise=True, coeffs=c)
+        return self.precision_precond_obj(params, noise=True, coeffs=c, matvec=mv)
+
+    @torch.no_grad()
+    def deflation_precond(self, params, basis=None):
+        """Spectral-deflation preconditioner for the composed noisy-scaled
+        precision operator, built from the kernel's spectral basis
+        (``basis`` = (eigval, eigvec) as ``eval_basis`` returns it, at these
+        hyperparameters; solved when None). Pass the result as
+        ``precond_override`` to :meth:`mll_loss`.
+
+        Symmetric normalization: the symmetric-Laplacian eigenvectors are
+        eigenvectors of the whole composed stack (a polynomial in L), with
+        eigenvalues noise(scale * (2 nu / l^2 + lambda)^nu): exact
+        deflation. Randomwalk: Q_rw = D^{1/2} (shift I + L_sym)^nu D^{1/2},
+        so the symmetric deflation extends by degree conjugation
+        (``ConjugatedPrecond``), approximate for the noisy composition (the
+        noise eigenvalue uses sigma^2 * mean(deg) as the effective scale).
+        The bulk scale tau is the composed value at the geometric mean of
+        the undeflated spectrum window [lambda_m, Gershgorin bound].
+        """
+        from ..ops.laplacian import gershgorin_bound
+        from ..ops.pivchol import ConjugatedPrecond, make_deflation_precond
+
+        randomwalk = self.kernel.laplacian_normalization == "randomwalk"
+        if basis is None:
+            basis = self.kernel.eval_basis(params)
+        eigval, eigvec = basis
+        c = self.kernel.coeffs(params)
+        # Undo eval_basis's D^{-1/2} recovery and renormalize: the
+        # orthonormal symmetric eigenvectors again.
+        v = eigvec * torch.sqrt(c.deg)[:, None]
+        v = v / torch.linalg.norm(v, dim=0, keepdim=True)
+
+        nu = self.kernel.nu
+        ls2 = torch.square(self.kernel.lengthscale(params).reshape(()))
+        s2 = self.noise(params).reshape(())
+        if randomwalk:
+            # noise terms see Q_rw ~ deg * Q_sym in scale
+            s2 = s2 * torch.mean(c.deg)
+        scale = self.outputscale(params).reshape(()) if self.use_outputscale else None
+
+        def composed_eig(lam):
+            q = torch.pow(2.0 * nu / ls2 + lam, float(nu))
+            if scale is not None:
+                q = q * scale
+            return q * (1.0 - s2 * q * (1.0 - s2 * q))
+
+        q = composed_eig(eigval)
+        q = torch.maximum(q, 1e-12 * torch.max(q))
+        lam_hi = gershgorin_bound(self.kernel.graph, c)
+        lam_mid = torch.sqrt(torch.clamp(eigval[-1], min=1e-12) * lam_hi)
+        tau = torch.maximum(composed_eig(lam_mid), 1e-12 * torch.max(q))
+        core = make_deflation_precond(v, q, tau)
+        if randomwalk:
+            return ConjugatedPrecond(d=torch.sqrt(c.deg), inner=core)
+        return core
 
     # -- training loss -----------------------------------------------------
     def mll_loss(self, params, generator: Optional[torch.Generator] = None,
@@ -190,19 +251,17 @@ class RiemannGP:
         Exact (dense Cholesky) when n <= cfg.max_cholesky, else SLQ with
         ``probes`` ([n, cfg.num_probes] Rademacher) or probes drawn from
         ``generator``, with preconditioned gradient solves when
-        cfg.cg_precondition.
+        cfg.cg_precondition, and the preconditioned (mBCG) quadrature when
+        cfg.slq_precond_quadrature (then ``probes`` is the pair (zm, zr) of
+        ``ops.slq.slq_logdet_mbcg``).
 
-        ``precond_override``: a preconditioner object (``apply``) to use in
-        place of the config-selected one.
+        ``precond_override``: a preconditioner object (``ops.pivchol``) to use
+        in place of the config-selected one, e.g. one cached across epochs
+        (``build_precond``) or ``deflation_precond``'s.
         """
         n = self.num_data
         y = self.train_y
         cfg = self.cfg
-        if cfg.slq_precond_quadrature and cfg.cg_precondition and n > cfg.max_cholesky:
-            raise NotImplementedError(
-                "slq_precond_quadrature: the preconditioned (mBCG) quadrature is not "
-                "ported yet (ROADMAP queue 1, 'Preconditioners and the mBCG log-det')"
-            )
         # One coefficient computation shared by the operator and the
         # preconditioner.
         c = self.kernel.coeffs(params)
@@ -213,10 +272,20 @@ class RiemannGP:
             if precond_override is not None
             else self.precision_precond_obj(params, noise=True, coeffs=c, matvec=mv)
         )
-        ld = engine.logdet(
-            mv, n, cfg, generator=generator, probes=probes, device=self.device,
-            precond=None if pobj is None else pobj.apply,
-        )
+        if cfg.slq_precond_quadrature and pobj is not None and n > cfg.max_cholesky:
+            # mBCG: probes from M, PCG-coefficient quadrature on
+            # M^{-1/2} Q M^{-1/2}, plus logdet(M) (ops/slq.py).
+            from ..ops.slq import slq_logdet_mbcg
+
+            ld = slq_logdet_mbcg(
+                mv, pobj, generator, cfg.num_probes, cfg.lanczos_max_iter,
+                cg_tol=cfg.cg_tolerance, cg_max_iter=cfg.cg_max_iter, probes=probes,
+            )
+        else:
+            ld = engine.logdet(
+                mv, n, cfg, generator=generator, probes=probes, device=self.device,
+                precond=None if pobj is None else pobj.apply,
+            )
         loss = 0.5 * (quad - ld + n * math.log(2.0 * math.pi))
         for _, prior, value_fn in self.kernel.priors():
             loss = loss - torch.sum(prior.log_prob(value_fn(params)))

@@ -13,8 +13,10 @@ Gradient (custom backward, the Hutchinson trace identity):
 All probes advance together — each Lanczos step is one [N, P] matvec — and
 the P tridiagonal matrices go through one batched ``torch.linalg.eigh``.
 
-Not ported yet: the preconditioned quadrature (``pcg_tridiag_batched``,
-``slq_logdet_mbcg``).
+The preconditioned quadrature (``slq_logdet_mbcg``, GPyTorch's mBCG
+log-det) draws its probes from the preconditioner M, reads the
+tridiagonalization of M^{-1/2} Q M^{-1/2} off a fixed number of PCG steps
+(``pcg_tridiag_batched``) and adds log det M.
 """
 
 from __future__ import annotations
@@ -148,16 +150,138 @@ def rademacher_probes(generator: torch.Generator, n: int, num_probes: int,
     return probes if device is None else probes.to(device)
 
 
-def _mbcg(name: str):
-    raise NotImplementedError(
-        f"{name}: the preconditioned (mBCG) quadrature is not ported yet "
-        "(ROADMAP queue 1, 'Preconditioners and the mBCG log-det')"
+# ---------------------------------------------------------------------------
+# Preconditioned SLQ (mBCG semantics)
+# ---------------------------------------------------------------------------
+
+
+def pcg_tridiag_batched(matvec: Callable, minv: Callable, b: torch.Tensor, num_steps: int):
+    """Preconditioned-CG coefficient extraction, batched over RHS columns.
+
+    Runs ``num_steps`` of PCG on A x = b with preconditioner M^{-1} and
+    records the (alpha_k, beta_k) recurrence coefficients. The CG-Lanczos
+    identity turns them into the tridiagonalization T of
+    B = M^{-1/2} A M^{-1/2} in the Krylov basis started at
+    M^{-1/2} b / ||M^{-1/2} b||. A fixed number of steps and no stop test:
+    a column that breaks down is masked (``valid``), never read on the host.
+
+    Returns (alphas [m, P], betas [m, P], valid [m, P]).
+    """
+    n, p = b.shape
+    num_steps = min(num_steps, n)
+    r = b
+    z = minv(b)
+    pvec = z
+    rz = torch.sum(b * z, dim=0)
+    alive = torch.ones((p,), dtype=torch.bool, device=b.device)
+    one = torch.ones_like(rz)
+    alphas, betas, valid = [], [], []
+    for _ in range(num_steps):
+        ap = matvec(pvec)
+        pap = torch.sum(pvec * ap, dim=0)
+        alive_now = alive & (rz > 1e-30) & (pap > 0.0)
+        alpha = torch.where(alive_now, rz / torch.where(alive_now, pap, one), one)
+        r = r - alpha[None, :] * ap
+        z = minv(r)
+        rz_new = torch.sum(r * z, dim=0)
+        rel = rz_new / torch.where(rz == 0, one, rz)
+        beta = torch.where(alive_now, torch.clamp(rel, min=0.0), torch.zeros_like(rel))
+        alive = alive_now & (rz_new > 1e-30)
+        pvec = z + beta[None, :] * pvec
+        rz = torch.where(alive, rz_new, rz)
+        alphas.append(alpha)
+        betas.append(beta)
+        valid.append(alive_now)
+    return torch.stack(alphas), torch.stack(betas), torch.stack(valid)
+
+
+def _pcg_t_quadrature(alphas, betas, valid, f):
+    """e1' f(T) e1 per probe from PCG coefficients:
+    T[k,k] = 1/alpha_k + beta_{k-1}/alpha_{k-1},  T[k,k+1] = sqrt(beta_k)/alpha_k.
+    Steps after a breakdown become decoupled identity blocks, as in
+    ``_tridiag_e1_quadrature``. One batched ``eigh`` over the P matrices."""
+    a, bt, v = alphas.T, betas.T, valid.T  # [P, m]
+    safe_a = torch.where(v, a, torch.ones_like(a))
+    diag = 1.0 / safe_a
+    carry = torch.where(v[:, :-1], bt[:, :-1] / safe_a[:, :-1], torch.zeros_like(safe_a[:, :-1]))
+    diag = diag + torch.nn.functional.pad(carry, (1, 0))
+    diag = torch.where(v, diag, torch.ones_like(diag))
+    off = torch.where(
+        v[:, :-1] & v[:, 1:],
+        torch.sqrt(torch.clamp(bt[:, :-1], min=0.0)) / safe_a[:, :-1],
+        torch.zeros_like(safe_a[:, :-1]),
     )
+    t = torch.diag_embed(diag) + torch.diag_embed(off, offset=1) + torch.diag_embed(off, offset=-1)
+    evals, evecs = torch.linalg.eigh(t)
+    w = evecs[:, 0, :] ** 2
+    return torch.sum(w * f(evals), dim=1)
 
 
-def pcg_tridiag_batched(*args, **kwargs):
-    _mbcg("pcg_tridiag_batched")
+class _SLQMbcg(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fn, minv, num_steps, cg_tol, cg_max_iter, zm, zr, mlogdet, *consts):
+        ctx.fn, ctx.minv = fn, minv
+        ctx.cg_tol, ctx.cg_max_iter = cg_tol, cg_max_iter
+        ctx.save_for_backward(zr, *consts)
+        gamma = torch.sum(zm * minv(zm), dim=0)  # ||M^{-1/2} z||^2 per probe
+        alphas, betas, valid = pcg_tridiag_batched(lambda v: fn(v, *consts), minv, zm, num_steps)
+        quad = _pcg_t_quadrature(alphas, betas, valid,
+                                 lambda lam: torch.log(torch.clamp(lam, min=1e-20)))
+        return mlogdet + torch.mean(gamma * quad)
+
+    @staticmethod
+    def backward(ctx, g):
+        zr, *consts = ctx.saved_tensors
+        fn = ctx.fn
+        p = zr.shape[1]
+        solves = cg_raw(lambda v: fn(v, *consts), zr, ctx.cg_tol, ctx.cg_max_iter,
+                        precond=ctx.minv)
+        # d logdet(A) = (1/p) sum_i (A^{-1} z_i)' dA z_i with E[z z'] = I; the
+        # preconditioner (and its logdet, which only recenters the estimator)
+        # gets no gradient.
+        bars = consts_cotangents(fn, zr, consts, ctx.needs_input_grad[8:], solves * (g / p))
+        return (None,) * 8 + tuple(bars)
 
 
-def slq_logdet_mbcg(*args, **kwargs):
-    _mbcg("slq_logdet_mbcg")
+def slq_logdet_mbcg(
+    matvec,
+    precond,
+    generator: Optional[torch.Generator],
+    num_probes: Optional[int],
+    num_steps: int,
+    cg_tol: float = 1e-2,
+    cg_max_iter: int = 1000,
+    probes=None,
+):
+    """Preconditioned stochastic Lanczos quadrature (GPyTorch's mBCG
+    log-det semantics, Gardner et al. 2018):
+
+        logdet(A) = logdet(M) + tr log(M^{-1/2} A M^{-1/2})
+                  ~= M.logdet() + mean_i [ z_i' M^{-1} z_i * e1' log(T_i) e1 ]
+
+    with probes z_i (E[zz'] = M) and T_i the PCG-coefficient
+    tridiagonalization.
+
+    ``precond``: an ``ops.pivchol`` object (``apply`` / ``sample`` /
+    ``unit_sample`` / ``logdet``). ``probes``: the pair (zm, zr) of
+    quadrature probes (E[zz'] = M) and gradient probes (E[zz'] = I), each
+    [n, P]; else both are drawn from ``generator`` (``precond.sample``, then
+    ``precond.unit_sample``, ``num_probes`` each).
+
+    Differentiable w.r.t. the tensors of ``matvec`` (an ``Operator``):
+    unbiased Hutchinson gradient on the plain probes zr, solved with
+    M-preconditioned CG; the preconditioner gets no gradient.
+    """
+    if probes is None:
+        if generator is None:
+            raise ValueError("stochastic logdet needs probes or a torch.Generator")
+        probes = (precond.sample(generator, num_probes),
+                  precond.unit_sample(generator, num_probes))
+    zm, zr = probes
+    op = as_operator(matvec)
+    with torch.no_grad():
+        mlogdet = precond.logdet()
+    return _SLQMbcg.apply(
+        op.fn, precond.apply, int(num_steps), float(cg_tol), int(cg_max_iter),
+        zm.detach(), zr.detach(), mlogdet, *op.consts,
+    )

@@ -8,7 +8,12 @@ bandwidth floor, the campaign's InferenceConfig with bf16 panels) with the
 Jacobi preconditioner and a tight CG tolerance, and takes ``mll_loss`` and
 its gradients w.r.t. the four raw hyperparameters at the campaign's initial
 and at its trained hyperparameters, once with edge-space cotangents (the
-campaign's, ``pins``) and once with panel-space cotangents (``pins_panel``).
+campaign's, ``pins``), once with panel-space cotangents (``pins_panel``),
+and once with edge-space cotangents and the campaign's rank-15
+pivoted-Cholesky preconditioner (``precond_type="pivchol"``,
+``pins_pivchol``). The preconditioner enters only the gradient's CG solves:
+the pivchol loss equals the Jacobi one, and its gradients differ from
+Jacobi's by what a solve stopped at ``cg_tolerance`` leaves.
 
 Panel space: on a TPU the JAX package takes the panels' cotangent through
 its custom VJP (``pallas_spmv.make_matvec_ad``); at this size its backward
@@ -66,7 +71,8 @@ def _panel_vjp_on_cpu(kernel):
 
 def train_pins_jax(n: int, num_test: int, probe_seed: int, cg_tolerance: float,
                    cg_max_iter: int, k: int = 16, num_modes: int = 100,
-                   seed: int = 0, nu: int = 2, cotangent: str = "edge") -> dict:
+                   seed: int = 0, nu: int = 2, cotangent: str = "edge",
+                   precond_type: str = "jacobi") -> dict:
     import dataclasses
 
     import jax
@@ -97,7 +103,7 @@ def train_pins_jax(n: int, num_test: int, probe_seed: int, cg_tolerance: float,
     cfg = InferenceConfig(
         max_cholesky=0, dense_operator_max_size=0, num_probes=48,
         lanczos_max_iter=24, cg_tolerance=cg_tolerance, cg_max_iter=cg_max_iter,
-        precond_type="jacobi", spmv_dtype="bfloat16",
+        precond_type=precond_type, spmv_dtype="bfloat16",
         solve_cotangent=cotangent, use_dia=False, eigensolver="chebyshev",
     )
     n_tr = train_x.shape[0]
@@ -127,7 +133,7 @@ def train_pins_jax(n: int, num_test: int, probe_seed: int, cg_tolerance: float,
         )(params)
         out[label] = {"hypers": dict(hypers), "loss": float(loss),
                       "grads": {k_: float(grads[k_]) for k_ in RAW}}
-        print(cotangent, label, out[label], file=sys.stderr)
+        print(cotangent, precond_type, label, out[label], file=sys.stderr)
     layout = kernel.block_layout
     return {
         "n": n, "num_test": num_test, "k": k, "seed": seed, "probe_seed": probe_seed,
@@ -149,8 +155,9 @@ def main():
     args = ap.parse_args()
     result = {
         "source": "tests/_train_pins.py (manifold_gp_tpu on the CPU, f32, matmul precision "
-                  "highest, bf16 panels, Jacobi; pins: edge cotangents, pins_panel: panel "
-                  "cotangents through make_matvec_ad's bf16 branch)",
+                  "highest, bf16 panels; pins: edge cotangents, Jacobi; pins_panel: panel "
+                  "cotangents through make_matvec_ad's bf16 branch, Jacobi; pins_pivchol: "
+                  "edge cotangents, rank-15 pivoted Cholesky)",
         # Loss: a matvec and a fixed number of Lanczos steps, no solve; the
         # two packages differ by f32 sum order only. Gradients: CG solves
         # stopped at cg_tolerance on both sides, in different sum orders;
@@ -160,6 +167,9 @@ def main():
         **train_pins_jax(args.n, args.num_test, args.probe_seed, args.cg_tolerance,
                          args.cg_max_iter),
     }
+    result["pins_pivchol"] = train_pins_jax(args.n, args.num_test, args.probe_seed,
+                                            args.cg_tolerance, args.cg_max_iter,
+                                            precond_type="pivchol")["pins"]
     # after the edge pins: the panel run patches the package's dispatch
     result["pins_panel"] = train_pins_jax(args.n, args.num_test, args.probe_seed,
                                           args.cg_tolerance, args.cg_max_iter,

@@ -263,9 +263,3 @@ def test_engine_draws_from_a_generator_or_raises():
     assert float(a1) == float(a2)
     v1 = tengine.average_variance(mv, n, 5, cfg, generator=torch.Generator().manual_seed(2))
     assert np.isfinite(float(v1))
-
-
-def test_unported_quadrature_raises():
-    for fn in (tslq.pcg_tridiag_batched, tslq.slq_logdet_mbcg):
-        with pytest.raises(NotImplementedError, match="mBCG"):
-            fn()
