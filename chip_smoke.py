@@ -8,9 +8,9 @@ Phases (any failure exits non-zero before the result line is printed):
      build of the three kernels from csrc/ with nvcc (timed);
   2. kernels vs plain at a small layout (10,240-point torus): the forward
      SpMV with f32, bf16 and x3 panels through both entry points
-     (resident/stream) at B = 1, 7, 8, 9, 37, 48, 64, 100, 125, 128, 129 and
-     200 (every batch-tile template, each tile border, a second batch
-     tile); the panel-cotangent kernel K3 with f32 and bf16 output through
+     (resident/stream) at B = 1, 7, 8, 9, 37, 48, 64, 100, 125, 128, 129,
+     200 and 300 (every batch-tile template, each tile border, a second
+     batch tile, three tiles with a ragged tail); the panel-cotangent kernel K3 with f32 and bf16 output through
      both entry points (bwd_blocks_call, block_bwd_blocks) at B = 1, 8, 15,
      16, 17, 37, 48, 64, 128, 129 and 200 (every batch class, the k padding
      to the mma depth 16, the chunked contraction above 64);
@@ -28,6 +28,19 @@ Phases (any failure exits non-zero before the result line is printed):
      reset to 0 just before and read just after; requires >= 1,543 forward
      launches, finite outputs and RMSE vs truth below half the label-noise
      floor;
+  3L. serve the same torus with the config's default eigensolver, block
+     LOBPCG (200 iterations, 100 modes), the launch counts reset just
+     before and read just after: >= 200 forward launches at B = 300 and
+     >= 201 at B = 100 in the basis; the basis's eigenvalues against phase
+     3's, RMSE vs truth, exact and reference-metric NLL, LOVE variances
+     (rank 100) against the exact ones, 64 posterior samples; then one
+     more basis solve under torch.profiler for its split (kernel, GEMM,
+     eigh/qr/svd, the rest). Fails on non-finite output or missing
+     launches, not on RMSE;
+  3M. the SRMNIST-shaped 10,010-point cloud (d = 64, 10 clusters, k = 50,
+     randomwalk, 100 modes, the default config: LOBPCG on the forward
+     kernel at B = 100 and 300), its eval_basis held to a host f64 ARPACK
+     shift-invert oracle on the same graph;
   4. kernels vs plain at the main paths' own shapes (the served layout), with
      times: kernel (CUDA events around 10 back-to-back launches, median of
      5), plain version, library yardstick
@@ -36,12 +49,14 @@ Phases (any failure exits non-zero before the result line is printed):
      forward kernel at B = 125 (the basis solve's width; f32, bf16 and x3
      panels) and (4a) at B = 1, 48 and 100 with bf16 panels (the widths and
      panel type of one training gradient; 100 is average_variance's) and
-     x3 panels at B = 48, through cuda_spmv.block_matvec, each record with
-     its batch tile; (4b) the panel-cotangent kernel at B = 1 and B = 48
+     x3 panels at B = 48, and f32 panels at LOBPCG's B = 100 and 300,
+     through cuda_spmv.block_matvec, each record with its batch tile; (4b) the panel-cotangent kernel at B = 1 and B = 48
      through cuda_spmv.block_bwd_blocks, each record with its batch class,
      and the edge path's gather after it (flat[edge_flat], flat[diag_flat]);
   5. the 16,384-point serve held to the JAX package's numbers
-     (examples_torch/serve_pins.json);
+     (examples_torch/serve_pins.json), and the port's lobpcg_smallest on
+     the 16,384-point Laplacian from the numpy start block of its
+     "pins_lobpcg", held to JAX's eigenvalues;
   6. the training slice: train_campaign at 262,144 points (3 epochs of
      manifold_informed_train from the campaign's initial hyperparameters
      with its rank-15 pivoted-Cholesky preconditioner rebuilt every 10
@@ -121,6 +136,17 @@ FWD_PER_GRADIENT = 150  # 24 Lanczos steps x 6 alone are 144
 K4_PER_GRADIENT = 192  # curve: 32 Lanczos steps x 3 Neumann applies x nu = 2
 PIVCHOL_BUILD = 90  # rank 15 x (3 Neumann applies x nu = 2) forward launches at B = 1
 PIVCHOL_INVARIANT = 1e-4  # ||M^-1 M x - x|| / ||x|| of the built preconditioner
+LOBPCG_MODES = 100  # the torus campaign's modes: LOBPCG's block width m
+LOBPCG_ITERS = 200  # InferenceConfig.eigensolver_max_iter: one apply at B = 3m
+                    # and one at B = m an iteration, plus one at B = m
+ORACLE_RTOL, ORACLE_ATOL = 2e-2, 1e-4  # eval_basis eigenvalues vs ARPACK (f64)
+ALIGN_MIN = 0.95  # |<eigvec_j, oracle_j>| of modes away from clusters, held
+ALIGN_MODES = 20  # on the lowest 20 modes (tests/test_eval_basis_10k.py's block):
+                  # the top of a 100-wide block still rotates after 200
+                  # iterations (an H100 read 0.86 and 0.52 at modes 93, 94;
+                  # JAX's own CPU run one mode at 0.943), so it is recorded
+GAP_FRAC = 5e-3  # of the top oracle eigenvalue: a mode closer to a neighbour
+                 # than this is inside a cluster and has no unique vector
 # K4's phase-2c widths: B = 1 (row template), up to 16 (row runs capped by
 # the shared-memory budget), 17-128, ragged float4 groups, and above 128
 # (column chunks).
@@ -361,6 +387,101 @@ def band_csr(layout, band):
     return coo.to_sparse_csr()
 
 
+def arpack_oracle(graph, coeffs, m):
+    """The smallest ``m`` eigenpairs of the symmetric Laplacian of
+    ``coeffs`` on ``graph`` in f64 on the host (scipy ARPACK, shift-invert
+    just below the spectrum), and the degrees: numpy (values, vectors, deg)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+
+    n = graph.num_nodes
+    rows, cols = graph.rows.cpu().numpy(), graph.cols.cpu().numpy()
+    triu = coeffs.triu.cpu().numpy().astype(np.float64)
+    adj = sp.coo_matrix((np.concatenate([triu, triu]),
+                         (np.concatenate([rows, cols]), np.concatenate([cols, rows]))),
+                        shape=(n, n)).tocsc()
+    lap = sp.diags(coeffs.diag.cpu().numpy().astype(np.float64)) - adj
+    vals, vecs = spl.eigsh(lap, k=m, sigma=-1e-3, which="LM")
+    order = np.argsort(vals)
+    return vals[order], vecs[:, order], coeffs.deg.cpu().numpy().astype(np.float64)
+
+
+def cloud_vs_arpack(dev):
+    """Phase 3M: ``eval_basis`` of a default-config kernel on the
+    SRMNIST-shaped cloud (LOBPCG on the forward kernel), held to
+    ``arpack_oracle``: all 100 eigenvalues (eigval[0] is forced to 0)
+    within ORACLE_RTOL/ORACLE_ATOL, and each of the lowest ALIGN_MODES
+    modes farther than GAP_FRAC of the top eigenvalue from its neighbours
+    aligned with the oracle's (after the same D^-1/2 recovery) better than
+    ALIGN_MIN, at least 3 such modes; every mode's alignment is recorded."""
+    import numpy as np
+    import torch
+
+    from manifold_gp_torch import RiemannMaternKernel
+    from manifold_gp_torch.ops import cuda_spmv
+    from examples_torch.run_large import srmnist_points
+
+    x = srmnist_points()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernel = RiemannMaternKernel(nu=2, x=x, nearest_neighbors=50,
+                                 laplacian_normalization="randomwalk", num_modes=100,
+                                 device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = kernel.init_params(graphbandwidth=0.5, lengthscale=1.0)
+    cuda_spmv.launch_count = 0
+    cuda_spmv.launch_count_by_batch.clear()
+    t0 = time.perf_counter()
+    val, vec = kernel.eval_basis(params)
+    torch.cuda.synchronize()
+    basis_s = time.perf_counter() - t0
+    by_batch = {str(b): c for b, c in sorted(cuda_spmv.launch_count_by_batch.items())}
+    launches = cuda_spmv.launch_count
+    val, vec = val.cpu().numpy(), vec.cpu().numpy()
+    t0 = time.perf_counter()
+    ov, ovec, deg = arpack_oracle(kernel.graph, kernel.coeffs(params), 100)
+    oracle_s = time.perf_counter() - t0
+    tol = ORACLE_ATOL + ORACLE_RTOL * np.abs(ov[1:])
+    err_of_tol = np.abs(val[1:] - ov[1:]) / tol
+    orec = ovec / np.sqrt(deg)[:, None]
+    orec = orec / np.linalg.norm(orec, axis=0, keepdims=True)
+    aligned = {}
+    for j in range(1, len(ov) - 1):
+        if min(ov[j] - ov[j - 1], ov[j + 1] - ov[j]) >= GAP_FRAC * ov[-1]:
+            aligned[j] = abs(float(vec[:, j] @ orec[:, j]))
+    held = {j: dot for j, dot in aligned.items() if j < ALIGN_MODES}
+    layout = kernel.block_layout
+    rec = {"n": kernel.graph.num_nodes, "num_edges": int(kernel.graph.num_edges),
+           "max_blocks": int(layout.max_blocks), "num_row_blocks": int(layout.num_row_blocks),
+           "kernel_build_s": build_s, "basis_s": basis_s, "oracle_s": oracle_s,
+           "spmv_launches": launches, "spmv_launches_by_batch": by_batch,
+           "eig_max_err_of_tol": float(err_of_tol.max()),
+           "eig_worst_mode": int(np.argmax(err_of_tol)) + 1,
+           "modes_checked": len(held), "min_alignment": min(held.values(), default=None),
+           "min_alignment_all_modes": min(aligned.values(), default=None),
+           "alignment": aligned, "eigval": [float(v) for v in val],
+           "oracle": [float(v) for v in ov]}
+    print(f"  N={rec['n']} edges={rec['num_edges']} S={rec['max_blocks']} row blocks="
+          f"{rec['num_row_blocks']}; kernel built in {build_s:.2f} s, basis {basis_s:.2f} s "
+          f"(forward launches {by_batch}), ARPACK {oracle_s:.2f} s")
+    print(f"  eigenvalues: max |err| / (atol + rtol |oracle|) = {rec['eig_max_err_of_tol']:.3f} "
+          f"(mode {rec['eig_worst_mode']}; must be <= 1); {len(held)} of the lowest "
+          f"{ALIGN_MODES} modes away from clusters, min alignment {rec['min_alignment']} "
+          f"(> {ALIGN_MIN}); all {len(aligned)} such modes of the block: min "
+          f"{rec['min_alignment_all_modes']}")
+    if by_batch.get("300", 0) < LOBPCG_ITERS or by_batch.get("100", 0) < LOBPCG_ITERS + 1:
+        fail(f"the 10k LOBPCG basis launched the forward kernel {by_batch} times")
+    if not (np.isfinite(val).all() and np.isfinite(vec).all()):
+        fail("non-finite 10k basis")
+    if not rec["eig_max_err_of_tol"] <= 1.0:
+        fail(f"10k basis eigenvalues miss the ARPACK oracle: {rec['eig_max_err_of_tol']:.3f}")
+    if len(held) < 3 or not rec["min_alignment"] > ALIGN_MIN:
+        fail(f"10k basis eigenvectors miss the ARPACK oracle: {held}")
+    return rec
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -375,6 +496,8 @@ def main():
         fail(f"the manifold_gp_torch package is not next to {__file__}")
     sys.path.insert(0, str(ROOT))
 
+    import numpy as np
+
     from manifold_gp_torch.ops import cuda_spmv, dia
     from manifold_gp_torch.ops.graph import build_graph
     from manifold_gp_torch.ops.block_sparse import assemble, build_block_layout, permute_in
@@ -388,9 +511,11 @@ def main():
         launch_counts,
         launches_since,
         layout_record,
+        lobpcg_eigvals,
         loss_and_grad,
         rademacher_numpy,
         serve_campaign,
+        srmnist_points,
         torus_points,
         train_campaign,
     )
@@ -432,7 +557,7 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     small = []
     for dtype, panels in panel_sets(small_layout, small_coeffs).items():
-        for batch in (1, 7, 8, 9, 37, 48, 64, 100, 125, 128, 129, 200):
+        for batch in (1, 7, 8, 9, 37, 48, 64, 100, 125, 128, 129, 200, 300):
             v = torch.randn((small_layout.num_nodes, batch), generator=gen, device=dev)
             small.append(compare(small_layout, panels, permute_in(small_layout, v).contiguous(),
                                  f"small {dtype}"))
@@ -505,6 +630,68 @@ def main():
     if not result["rmse_vs_truth"] < 0.5 * result["noise_floor_rmse"]:
         fail(f"RMSE vs truth {result['rmse_vs_truth']} is not below half the noise floor")
 
+    # -- phase 3L: the same torus with the default eigensolver (LOBPCG) -----
+    print("== phase 3L: serve the 262,144-point torus with block LOBPCG (the config default)")
+    from examples_torch.profile_gradient import profile_basis
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = 0
+    cuda_spmv.launch_count_by_batch.clear()
+    # LOVE at the modes' rank and above the Krylov exhaustion rank m + 1
+    lres, lparams, lmodel = serve_campaign(n=262_144, device=dev, eigensolver="lobpcg",
+                                           love_ranks=(100, 128), num_samples=64)
+    lobpcg_launches = cuda_spmv.launch_count
+    lres["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+    lres["spmv_launches"] = lobpcg_launches
+    lres["spmv_launches_by_batch"] = {str(b): c for b, c in
+                                      sorted(cuda_spmv.launch_count_by_batch.items())}
+    lob_vals = lmodel.kernel.eval_basis(lparams)[0]  # the solved basis, served
+    cheb_vals = served_basis[0]
+    rel = (torch.abs(lob_vals[1:] - cheb_vals[1:]) / cheb_vals[1:]).cpu()
+    lres["eigval_vs_chebyshev"] = {
+        "max_rel": float(rel.max()), "median_rel": float(rel.median()),
+        "modes_within_1e-3": int((rel <= 1e-3).sum()) + 1,
+        "modes_within_1e-2": int((rel <= 1e-2).sum()) + 1,
+        "lobpcg": [float(v) for v in lob_vals.cpu()],
+        "chebyshev": [float(v) for v in cheb_vals.cpu()]}
+    lres["profile"] = profile_basis(lmodel.kernel, lparams)
+    by_kind = lres["profile"]["device_ms_by_kind"]
+    print("  " + json.dumps({k: v for k, v in lres.items()
+                             if k not in ("eigval_vs_chebyshev", "profile")}))
+    print(f"  basis {lres['basis_s']:.2f} s (Chebyshev, phase 3: {result['basis_s']:.2f} s); "
+          f"forward launches by batch width {lres['basis_spmv_launches_by_batch']}; peak "
+          f"memory {lres['peak_mem_bytes'] / 1e9:.3f} GB")
+    print(f"  profiled solve: wall {lres['profile']['wall_ms']:.1f} ms, device "
+          f"{lres['profile']['device_ms']:.1f} ms (idle {lres['profile']['device_idle_share']:.3f}): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in by_kind.items()))
+    print(f"  eigenvalues vs Chebyshev: max rel {rel.max():.3e}, median {rel.median():.3e}, "
+          f"{lres['eigval_vs_chebyshev']['modes_within_1e-2']} of 100 within 1e-2")
+    print(f"  RMSE vs truth {lres['rmse_vs_truth']:.6f} (Chebyshev {result['rmse_vs_truth']:.6f}; "
+          f"half the noise floor {0.5 * lres['noise_floor_rmse']:.6f}); NLL exact "
+          f"{lres['nll_noisy_test']:.6f}, reference metric {lres['nll_noisy_test_reference']:.6f} "
+          f"(Chebyshev exact {result['nll_noisy_test']:.6f}, reference "
+          f"{result['nll_noisy_test_reference']:.6f})")
+    for rank, rec in lres["love"].items():
+        print(f"  LOVE rank {rank}: eval {rec['eval_s']:.3f} s, variances vs exact max rel "
+              f"{rec['var_max_rel']:.3e} (max diff / max var {rec['var_max_diff_of_max']:.3e})")
+    print(f"  exact variances in [{lres['exact_var_range'][0]:.3e}, "
+          f"{lres['exact_var_range'][1]:.3e}]; 64 samples in {lres['samples_s']:.3f} s, "
+          f"sample mean max |z| {lres['samples_mean_max_z']:.2f}")
+    report["serve_262k_lobpcg"] = lres
+    by_batch = lres["basis_spmv_launches_by_batch"]
+    if by_batch.get("300", 0) < LOBPCG_ITERS or by_batch.get("100", 0) < LOBPCG_ITERS + 1:
+        fail(f"the LOBPCG basis launched the forward kernel {by_batch} times by batch width "
+             f"(< {LOBPCG_ITERS} at B=300 or < {LOBPCG_ITERS + 1} at B=100)")
+    if not lres["finite"]:
+        fail("non-finite LOBPCG basis, posterior, LOVE variances or samples at 262k")
+    del lmodel, lparams, lob_vals
+    torch.cuda.empty_cache()
+
+    # -- phase 3M: the SRMNIST-shaped cloud against an f64 ARPACK oracle -----
+    print("== phase 3M: the 10,010-point SRMNIST-shaped cloud, default config, vs ARPACK")
+    report["cloud_10k"] = cloud_vs_arpack(dev)
+
     # -- phase 4: kernel vs plain at the main path's shapes -----------------
     print("== phase 4: kernel vs plain at the main path's shapes (B=125)")
     kernel = model.kernel
@@ -568,6 +755,25 @@ def main():
         del tpanels
         torch.cuda.empty_cache()
     report["main_fwd_train"] = main_fwd_train
+
+    print("== phase 4c: forward kernel with f32 panels at LOBPCG's widths (B = 100, 300)")
+    main_fwd_lobpcg = []
+    lpanels = assemble(layout, main_coeffs.diag, main_coeffs.triu)
+    for batch in (LOBPCG_MODES, 3 * LOBPCG_MODES):
+        v = torch.randn((layout.num_nodes, batch), generator=gen, device=dev)
+        rec = compare(layout, lpanels, permute_in(layout, v).contiguous(), "main float32",
+                      timing=timing)
+        print(f"    TB={rec['batch_tile']} ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+              f"library_ms={rec['library_ms']} bound_ms={rec['bound_ms']:.4f} "
+              f"({rec['bound_by']})")
+        main_fwd_lobpcg.append(rec)
+        del v
+        torch.cuda.empty_cache()
+    del lpanels
+    torch.cuda.empty_cache()
+    b100, b300 = main_fwd_lobpcg
+    print(f"  B=300 against 3 x B=100: {b300['ms']:.4f} vs {3 * b100['ms']:.4f} ms")
+    report["main_fwd_lobpcg"] = main_fwd_lobpcg
 
     def timing_bwd(bc, g, pv, s, out_dtype):
         nrb = layout.num_row_blocks
@@ -642,7 +848,18 @@ def main():
     for key in ("num_edges", "max_blocks", "num_row_blocks"):
         if r16[key] != pins[key]:
             fail(f"16k {key}: port {r16[key]} != JAX {pins[key]}")
-    report["serve_16k"] = {"result": r16, "checks": checks}
+    lpin = pins["pins_lobpcg"]
+    lvals, lbound = lobpcg_eigvals(lpin, device=dev)
+    gap = float(np.max(np.abs(lvals - np.asarray(lpin["eigval"])))) / lbound
+    print(f"  LOBPCG on the 16k Laplacian from the pinned numpy start block: max |port - JAX| / "
+          f"bound = {gap:.3e} (atol {lpin['atol_of_bound']:.1e}; the port's CPU run: "
+          f"{lpin['port_cpu_max_diff_of_bound']:.3e}); bound port {lbound:.6f} jax "
+          f"{lpin['bound']:.6f}")
+    if not (np.isfinite(lvals).all() and gap <= lpin["atol_of_bound"]):
+        fail(f"16k LOBPCG eigenvalues differ from the JAX pins by {gap:.3e} of the bound")
+    report["serve_16k"] = {"result": r16, "checks": checks,
+                           "lobpcg": {"max_diff_of_bound": gap, "bound": lbound,
+                                      "eigval": [float(v) for v in lvals]}}
 
     # -- phase 6: the training slice at 262,144 points ----------------------
     print("== phase 6: train the 262,144-point torus")
@@ -1138,7 +1355,7 @@ def main():
     # -- result --------------------------------------------------------------
     f32 = main[0]
     bwd = next(r for r in main_bwd if r["batch"] == 48 and r["out_dtype"] == "float32")
-    if min(launches, train_fwd, train_bwd, curve_counts["dia_launches"]) <= 0:
+    if min(launches, lobpcg_launches, train_fwd, train_bwd, curve_counts["dia_launches"]) <= 0:
         fail("a kernel of a main path was never launched on it")
     kernels = [{
         "name": "block_ell_spmv",
@@ -1148,7 +1365,9 @@ def main():
         "also_replaces": "manifold_gp_tpu/ops/pallas_spmv.py:126",
         "launches": launches,
         "launches_by_path": {
-            "serve": launches, "train": train_fwd,
+            "serve": launches, "serve_lobpcg": lobpcg_launches,
+            "serve_lobpcg_by_batch": report["serve_262k_lobpcg"]["spmv_launches_by_batch"],
+            "cloud_10k_lobpcg": report["cloud_10k"]["spmv_launches"], "train": train_fwd,
             "precond_build": tres["gradients"]["trained"]["pivchol"]["build_launches"][
                 "spmv_launches"]},
         "max_abs_err": f32["stream_matvec_call"]["max_abs_err"],
@@ -1163,7 +1382,7 @@ def main():
         "other_shapes": [
             {k: r[k] for k in ("panels", "batch", "batch_tile", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms")}
-            for r in main[1:] + main_fwd_train
+            for r in main[1:] + main_fwd_train + main_fwd_lobpcg
         ],
     }, {
         "name": "block_ell_bwd_blocks",

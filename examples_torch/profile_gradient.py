@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where one training gradient of the campaign spends its time on the card.
+"""Where one training gradient of the campaign spends its time on the card
+(and, with ``profile_basis``, one spectral-basis solve).
 
 Builds the campaign (``run_large.build_campaign`` on the torus or the curve)
 and its preconditioner (``--precond``: Jacobi, or the campaign's pivoted
@@ -71,6 +72,52 @@ def profile_gradient(n: int, trained: bool, top: int = 12, manifold: str = "toru
         "device_idle_share": 1.0 - device_ms / wall_ms,
         "kernels": [{"name": k[:80], "device_ms": ms, "share_of_wall": ms / wall_ms,
                      "launches": c} for k, ms, c in rows[:top]],
+    }
+
+
+# aten ops whose device time (their kernels included) is the basis solve's
+# dense linear algebra, by kind
+_BASIS_OPS = {
+    "gemm": ("aten::mm", "aten::addmm", "aten::bmm"),
+    "eigh_qr_svd": ("aten::linalg_eigh", "aten::linalg_qr", "aten::_linalg_svd"),
+}
+
+
+def profile_basis(kernel, params) -> dict:
+    """Trace one ``eval_basis`` of ``kernel`` (on the card) with
+    ``torch.profiler``: wall ms, device ms split into the forward SpMV
+    kernel (by kernel name), GEMMs and cuSOLVER ``eigh``/``qr``/``svd`` (by
+    the aten op that launched them, its kernels included) and the rest,
+    and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        type(kernel).eval_basis(kernel, params)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    device_ms = sum(e.device_time_total for e in device) / 1e3
+    spmv = [e for e in device if "block_ell_spmv" in e.key]
+    split = {"spmv_kernel": sum(e.device_time_total for e in spmv) / 1e3}
+    for kind, names in _BASIS_OPS.items():
+        split[kind] = sum(e.device_time_total for e in events
+                          if e.device_type == torch.autograd.DeviceType.CPU
+                          and e.key in names) / 1e3
+    split["other_device"] = device_ms - sum(split.values())
+    top = sorted(device, key=lambda e: -e.device_time_total)[:12]
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": device_ms,
+        "device_idle_share": 1.0 - device_ms / wall_ms,
+        "device_ms_by_kind": split,
+        "spmv_launches": sum(e.count for e in spmv),
+        "top_kernels": [{"name": e.key[:80], "device_ms": e.device_time_total / 1e3,
+                         "launches": e.count} for e in top],
     }
 
 

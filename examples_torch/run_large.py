@@ -23,8 +23,11 @@ the composed operator (``precond_type="pivchol"``), rebuilt every 10 epochs
 
 ``serve_campaign``: given hyperparameters (default: the trained values of
 the 262k torus campaign), one basis solve and the evaluation tail: test
-RMSE/NLL on the noisy labels and the posterior mean's RMSE against the
-known truth.
+RMSE/NLL on the noisy labels (the NLL exactly and with the reference's
+stochastic metric) and the posterior mean's RMSE against the known truth;
+optionally LOVE variances (``love_ranks``), pathwise posterior samples, and
+another basis solver through the config (``--eigensolver lobpcg``, the
+config default, serves the torus with block LOBPCG).
 
 ``train_campaign``: precision-form MLL training (``manifold_informed_train``)
 from the campaign's initial hyperparameters, the same epochs again with the
@@ -36,6 +39,7 @@ loss-and-gradient (``precond_comparison``).
 Usage:
   python examples_torch/run_large.py                 # serve 262,144 points, CUDA
   python examples_torch/run_large.py --n 8192 --cpu  # small serve on the CPU
+  python examples_torch/run_large.py --eigensolver lobpcg --love-rank 100
   python examples_torch/run_large.py --train --n 262144 --epochs 3
   python examples_torch/run_large.py --train --n 4096 --epochs 2 --cpu
   python examples_torch/run_large.py --manifold curve --train --n 262144 --epochs 3
@@ -117,6 +121,15 @@ def torus_points(n: int, seed: int = 0, big_r: float = 1.0, small_r: float = 0.4
         axis=1,
     ).astype(np.float32)
     return x, u, v
+
+
+def srmnist_points(n: int = 10_010, d: int = 64, seed: int = 0):
+    """The SRMNIST-shaped cloud of ``bench.py::build_inputs``: n points in
+    R^d around 10 Gaussian cluster centers (10 digits' worth of structure)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((10, d)).astype(np.float32) * 2.0
+    return centers[rng.integers(0, 10, n)] + 0.3 * rng.standard_normal((n, d)).astype(
+        np.float32)
 
 
 def _sync(device):
@@ -274,22 +287,43 @@ def launches_since(before: dict) -> dict:
     return {key: value - before[key] for key, value in launch_counts().items()}
 
 
+def launches_by_batch() -> dict:
+    """The forward kernel's launches so far by batch width: {B: count}."""
+    from manifold_gp_torch.ops import cuda_spmv
+
+    return dict(cuda_spmv.launch_count_by_batch)
+
+
 def serve_campaign(n: int = 262_144, hypers: dict = None,
                    device="cuda", k: int = None, num_test: int = 2048,
                    num_modes: int = None, seed: int = 0, nu: int = 2,
-                   manifold: str = "torus"):
+                   manifold: str = "torus", love_ranks=(),
+                   num_samples: int = 0, **cfg_overrides):
     """Build, solve the basis once and score the held-out points, at
-    ``hypers`` (default: the manifold's trained campaign values).
+    ``hypers`` (default: the manifold's trained campaign values), with
+    ``cfg_overrides`` replacing fields of the campaign's config (e.g.
+    ``eigensolver="lobpcg"``, the config default, for the torus).
+
+    Scores: RMSE/NLL on the noisy labels, exactly and with the reference's
+    stochastic metric (``test_model(metric="reference")``, probes from a
+    generator seeded with ``seed``), and the posterior mean's RMSE against
+    the known truth. ``love_ranks``: also ``eval(love_rank=r)`` for each r
+    and its predictive variances at the test points against the exact ones.
+    ``num_samples``: also that many pathwise posterior samples at the test
+    points (their mean against the posterior mean).
 
     Returns (result dict, params, model). The result holds the timings
     (host clock around work that ends in a device synchronize), the layout
-    size, the kernels' launch counts during the basis solve, and the
-    metrics."""
+    size, the kernels' launch counts during the basis solve (the forward
+    kernel's also by batch width), and the metrics."""
+    import torch
+
     from manifold_gp_torch.utils import test_model
 
     hypers = MANIFOLDS[manifold]["hypers"] if hypers is None else hypers
     camp = build_campaign(n=n, device=device, k=k, num_test=num_test,
-                          num_modes=num_modes, seed=seed, nu=nu, manifold=manifold)
+                          num_modes=num_modes, seed=seed, nu=nu, manifold=manifold,
+                          **cfg_overrides)
     k, num_modes = camp.model.kernel.nearest_neighbors, camp.model.kernel.num_modes
     model, timings = camp.model, camp.timings
     kernel, device = model.kernel, model.device
@@ -298,12 +332,15 @@ def serve_campaign(n: int = 262_144, hypers: dict = None,
         graphbandwidth=hypers["graphbandwidth"], lengthscale=hypers["lengthscale"],
     )
 
-    before = launch_counts()
+    before, before_by_batch = launch_counts(), launches_by_batch()
     t0 = time.perf_counter()
     basis = kernel.eval_basis(params)
     _sync(device)
     timings["basis_s"] = time.perf_counter() - t0
     basis_launches = launches_since(before)
+    by_batch = {str(b): c - before_by_batch.get(b, 0)
+                for b, c in sorted(launches_by_batch().items())
+                if c != before_by_batch.get(b, 0)}
     # test_model re-runs eval(); serve the solved basis instead of solving
     # it again.
     kernel.eval_basis = lambda p: basis
@@ -312,25 +349,92 @@ def serve_campaign(n: int = 262_144, hypers: dict = None,
     rmse, nll = test_model(model, params, camp.test_x, camp.test_y, noisy_test=True)
     _sync(device)
     timings["eval_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, nll_reference = test_model(model, params, camp.test_x, camp.test_y, noisy_test=True,
+                                  metric="reference",
+                                  generator=torch.Generator(device=device).manual_seed(seed))
+    _sync(device)
+    timings["eval_reference_s"] = time.perf_counter() - t0
     post = model.posterior(params, camp.test_x, noisy_posterior=False)
     mean = post.mean.cpu().numpy()
     rmse_true = float(np.sqrt(np.mean((mean - camp.test_y_true) ** 2)))
     eigval = basis[0].cpu().numpy()
+    extra = {}
+    finite = bool(np.isfinite(mean).all() and np.isfinite(eigval).all())
+    if love_ranks:
+        var_exact = torch.diagonal(post.covar)
+        extra.update(love={}, exact_var_range=[float(var_exact.min()), float(var_exact.max())])
+    for rank in love_ranks:
+        t0 = time.perf_counter()
+        model.eval(params, love_rank=rank,
+                   generator=torch.Generator(device=device).manual_seed(seed))
+        _sync(device)
+        eval_s = time.perf_counter() - t0
+        var_love = torch.diagonal(model.posterior(params, camp.test_x).covar)
+        diff = torch.abs(var_love - var_exact)
+        extra["love"][str(rank)] = {
+            "eval_s": eval_s, "var_max_rel": float(torch.max(diff / var_exact)),
+            "var_max_diff_of_max": float(torch.max(diff) / torch.max(var_exact))}
+        finite = finite and bool(torch.isfinite(var_love).all())
+    if num_samples:
+        t0 = time.perf_counter()
+        samples = model.posterior_samples(
+            params, camp.test_x, torch.Generator(device=device).manual_seed(seed + 1),
+            num_samples)
+        _sync(device)
+        timings["samples_s"] = time.perf_counter() - t0
+        # the sample mean's error in units of its standard error
+        z = (samples.mean(dim=0) - post.mean) / (post.stddev / num_samples ** 0.5)
+        extra.update(num_samples=num_samples, samples_shape=list(samples.shape),
+                     samples_mean_max_z=float(torch.max(torch.abs(z))))
+        finite = finite and bool(torch.isfinite(samples).all())
     result = {
         **layout_record(camp, n, k, num_modes),
         "manifold": manifold,
         "eigensolver": camp.cfg.eigensolver,
         "basis_spmv_launches": basis_launches["spmv_launches"],
+        "basis_spmv_launches_by_batch": by_batch,
         "basis_dia_launches": basis_launches["dia_launches"],
         "rmse_vs_truth": rmse_true,
         "rmse_noisy_test": rmse,
         "nll_noisy_test": nll,
+        "nll_noisy_test_reference": nll_reference,
         "noise_floor_rmse": camp.noise_floor_rmse,
         "eigval_head": [float(v) for v in eigval[:10]],
-        "finite": bool(np.isfinite(mean).all() and np.isfinite(eigval).all()),
+        **extra,
+        "finite": finite,
         **timings,
     }
     return result, params, model
+
+
+def lobpcg_eigvals(pins: dict, device="cuda"):
+    """The port's ``lobpcg_smallest`` on the campaign's symmetric Laplacian
+    (f32 block-ELL panels through the forward kernel, as ``eval_basis``
+    applies it) from the numpy start block of ``pins`` (the
+    ``pins_lobpcg`` entry of ``serve_pins.json``): (eigenvalues as numpy,
+    the Gershgorin bound)."""
+    import torch
+
+    from manifold_gp_torch.ops.eigen import lobpcg_smallest
+    from manifold_gp_torch.ops.laplacian import gershgorin_bound, laplacian_matvec
+    from manifold_gp_torch.ops.sparse_formats import assemble
+
+    camp = build_campaign(n=pins["n"], device=device, k=pins["k"], num_test=pins["num_test"],
+                          num_modes=pins["num_modes"], seed=pins["seed"])
+    kernel = camp.model.kernel
+    params = kernel.init_params(graphbandwidth=pins["hypers"]["graphbandwidth"],
+                                lengthscale=pins["hypers"]["lengthscale"])
+    c = kernel.coeffs(params)
+    block = (kernel.block_layout, assemble(kernel.block_layout, c.diag, c.triu))
+    bound = gershgorin_bound(kernel.graph, c)
+    x0 = np.random.default_rng(pins["x0_seed"]).standard_normal(
+        (kernel.graph.num_nodes, pins["num_modes"])).astype(np.float32)
+    with torch.no_grad():
+        vals, _ = lobpcg_smallest(
+            lambda v: laplacian_matvec(kernel.graph, c, v, "symmetric", block=block),
+            torch.from_numpy(x0).to(kernel.device), bound, max_iter=pins["max_iter"])
+    return vals.cpu().numpy(), float(bound)
 
 
 INITIAL_HYPERS = {"noise": 1e-2, "outputscale": 1.0, "graphbandwidth": 1.0,
@@ -566,6 +670,11 @@ def main():
     ap.add_argument("--train", action="store_true",
                     help="train the hyperparameters instead of serving given ones")
     ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("--eigensolver", choices=("lobpcg", "chebyshev", "host_f64"), default=None,
+                    help="serve: the basis solver (default: the manifold's)")
+    ap.add_argument("--love-rank", type=int, action="append", default=[],
+                    help="serve: also LOVE variances of this rank against the exact ones "
+                         "(repeat for several ranks)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args()
     device = "cpu" if args.cpu else "cuda"
@@ -576,9 +685,11 @@ def main():
             manifold=args.manifold,
         )
     else:
+        overrides = {} if args.eigensolver is None else {"eigensolver": args.eigensolver}
         result, _, _ = serve_campaign(
             n=args.n, device=device, num_test=args.num_test,
             num_modes=args.num_modes, seed=args.seed, manifold=args.manifold,
+            love_ranks=tuple(args.love_rank), **overrides,
         )
     print(json.dumps(result))
 

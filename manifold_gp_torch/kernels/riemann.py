@@ -5,16 +5,17 @@ The kernel holds the data, the kNN graph, the block-ELL layout and the
 normalization flags; learnable state is the flat params dict
 ({'raw_graphbandwidth', 'raw_lengthscale'}). ``eval_basis`` solves the
 spectral basis: dense ``torch.linalg.eigh`` at or below ``eigh_max_size``,
-Chebyshev-filtered subspace iteration above it, every Laplacian apply of
-which goes through the fused SpMV of the kernel's layout (a CUDA kernel on a
-card), or, with ``eigensolver="host_f64"``, the float64 shift-invert solver
-on the host at any size. Then the reference's post-processing: eigval[0] =
+above it block LOBPCG (the default ``eigensolver="lobpcg"``) or
+Chebyshev-filtered subspace iteration, every Laplacian apply of which goes
+through the fused SpMV of the kernel's layout (a CUDA kernel on a card), or,
+with ``eigensolver="host_f64"``, the float64 shift-invert solver on the host
+at any size. Then the reference's post-processing: eigval[0] =
 0, D^{-1/2} recovery, column L2 normalization. ``precision_matvec`` /
 ``precision_diag`` are the Matérn precision operator that training solves
 with and its Jacobi diagonal. ``block_layout`` holds either layout of
 ``ops.sparse_formats`` (block-ELL panels or DIA bands).
 
-Not ported yet: the mesh path and the LOBPCG basis solver.
+Not ported yet: the mesh path (its masked LOBPCG among it).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, InferenceConfig, resolve_device
 from ..ops.bump import bump_function
-from ..ops.eigen import chebyshev_filtered_smallest, host_f64_smallest
+from ..ops.eigen import chebyshev_filtered_smallest, host_f64_smallest, lobpcg_smallest
 from ..ops.graph import build_graph
 from ..ops.knn import NearestNeighbors
 from ..ops.laplacian import (
@@ -39,17 +40,16 @@ from ..parameters import ConstrainedParam, Positive
 
 
 def _matrix_free_smallest(cfg, matvec, n_rows, m, bound, device):
-    """cfg-dispatched large-N basis solver. The Chebyshev path oversamples the
-    block by ~25% and slices back; its start block comes from an explicit
-    generator with seed 0."""
-    if cfg.eigensolver != "chebyshev":
-        raise NotImplementedError(
-            f"eigensolver={cfg.eigensolver!r} is not ported yet (LOBPCG: ROADMAP "
-            "queue 1, 'Remaining basis solvers'); use eigensolver='chebyshev' or "
-            "'host_f64' above eigh_max_size"
-        )
-    mb = min(m + max(8, m // 4), n_rows)
+    """cfg-dispatched large-N basis solver: block LOBPCG (the default) or
+    Chebyshev-filtered subspace iteration. Both draw their start block from
+    an explicit generator with seed 0; the Chebyshev path oversamples the
+    block by ~25% and slices back."""
     generator = torch.Generator(device=device).manual_seed(0)
+    if cfg.eigensolver != "chebyshev":
+        x0 = torch.randn((n_rows, m), generator=generator, dtype=torch.float32,
+                         device=device)
+        return lobpcg_smallest(matvec, x0, bound, max_iter=cfg.eigensolver_max_iter)
+    mb = min(m + max(8, m // 4), n_rows)
     x0 = torch.randn((n_rows, mb), generator=generator, dtype=torch.float32,
                      device=device)
     return chebyshev_filtered_smallest(

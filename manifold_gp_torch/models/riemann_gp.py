@@ -15,8 +15,12 @@ K = s Z Z' + sigma^2 I and C = (sigma^2/s) I_m + Z'Z,
     cov_** = sigma^2 Z_* C^{-1} Z_*'  (+ sigma^2 I when noisy)
 — only m x m dense work (m = num_modes).
 
-Not ported yet: the semisupervised ``labeled`` mask, LOVE variances, the
-blend with a vanilla GP (``base_model``).
+LOVE (``eval(love_rank=...)``) swaps the exact covariance for a rank-r
+Lanczos root-inverse of the train covariance; ``posterior_samples`` draws
+pathwise joint samples in feature space.
+
+Not ported yet: the semisupervised ``labeled`` mask, the blend with a
+vanilla GP (``base_model``).
 """
 
 from __future__ import annotations
@@ -310,12 +314,20 @@ class RiemannGP:
 
     # -- prediction --------------------------------------------------------
     @torch.no_grad()
-    def eval(self, params, love_rank: Optional[int] = None):
-        """Precompute the spectral basis + feature-space posterior cache."""
-        if love_rank is not None:
-            raise NotImplementedError(
-                "RiemannGP.eval(love_rank=...): LOVE variances are not ported yet"
-            )
+    def eval(self, params, love_rank: Optional[int] = None,
+             generator: Optional[torch.Generator] = None,
+             love_v0: Optional[torch.Tensor] = None):
+        """Precompute the spectral basis + feature-space posterior cache.
+
+        ``love_rank``: opt-in LOVE predictive variances (GPyTorch's
+        ``fast_pred_var``): a rank-r Lanczos root-inverse of the train
+        covariance K = s Z Z' + sigma^2 I replaces the exact Woodbury cache
+        in the predictive covariance; the mean stays exact. With
+        ``love_rank >= n_train`` the Krylov space is exhausted and LOVE
+        reproduces the exact variances. The Lanczos start vector is
+        ``love_v0`` ([n_train]) or drawn from ``generator`` (default: seed 0
+        on the model's device).
+        """
         basis = self.kernel.eval_basis(params)
         if self.train_is_graph:
             z = self.kernel.features_train(params, basis)
@@ -336,6 +348,29 @@ class RiemannGP:
         u = z.T @ resid[:, None]
         w = torch.cholesky_solve(u, chol_c)[:, 0]
         self._cache = dict(basis=basis, chol_c=chol_c, w=w, s=s, sigma2=sigma2, mu=mu)
+        if love_rank is not None:
+            from ..ops.eigen import lanczos_eigh
+
+            n_tr = z.shape[0]
+            rank = int(min(love_rank, n_tr))
+
+            def khat_mv(v):
+                vv = v[:, None] if v.dim() == 1 else v
+                out = s * (z @ (z.T @ vv)) + sigma2 * vv
+                return out[:, 0] if v.dim() == 1 else out
+
+            if love_v0 is None:
+                if generator is None:
+                    generator = torch.Generator(device=self.device).manual_seed(0)
+                love_v0 = torch.randn((n_tr,), generator=generator, dtype=torch.float32,
+                                      device=generator.device)
+            lam, vecs = lanczos_eigh(khat_mv, love_v0.to(self.device), rank, rank)
+            # After the Krylov space is exhausted the spurious Ritz pairs come
+            # back as +inf values with NaN vectors: zero-weight them.
+            finite = torch.isfinite(lam)
+            inv_lam = torch.where(finite, 1.0 / torch.where(finite, lam, 1.0), 0.0)
+            vecs = torch.where(finite[None, :], torch.nan_to_num(vecs), 0.0)
+            self._cache["love"] = (inv_lam, vecs, z)
         return self
 
     @torch.no_grad()
@@ -361,11 +396,54 @@ class RiemannGP:
         cache = self._cache
         zs = self.kernel.features(params, cache["basis"], x, is_train=is_train)
         mean = cache["mu"] + (zs @ cache["w"][:, None])[:, 0]
-        half = torch.linalg.solve_triangular(cache["chol_c"], zs.T, upper=False)
-        covar = cache["sigma2"] * (half.T @ half)
+        if "love" in cache:
+            # LOVE covariance: K** - K*t (V diag(1/lam) V') Kt* with the rank-r
+            # Lanczos Ritz pairs of the train covariance (eval()).
+            inv_lam, vecs, z_tr = cache["love"]
+            s = cache["s"]
+            wv = (s * (zs @ z_tr.T)) @ vecs
+            covar = s * (zs @ zs.T) - (wv * inv_lam[None, :]) @ wv.T
+        else:
+            half = torch.linalg.solve_triangular(cache["chol_c"], zs.T, upper=False)
+            covar = cache["sigma2"] * (half.T @ half)
         if noisy_posterior:
             covar = covar + cache["sigma2"] * torch.eye(
                 covar.shape[0], dtype=covar.dtype, device=covar.device
             )
         stddev = torch.sqrt(torch.clamp(torch.diagonal(covar), min=0.0))
         return Posterior(mean=mean, covar=covar, stddev=stddev)
+
+    @torch.no_grad()
+    def posterior_samples(self, params, x, generator: Optional[torch.Generator],
+                          num_samples: int, noisy_posterior: bool = False,
+                          is_train: Optional[bool] = None, xi: Optional[torch.Tensor] = None,
+                          eta: Optional[torch.Tensor] = None):
+        """Pathwise joint posterior samples at ``x``: [num_samples, n*].
+
+        Feature-space sampling in O(m^2 + n* m) per draw, with C = L L' from
+        eval()'s cache (cov = sigma^2 Z* C^{-1} Z*'):
+
+            f = mean + sigma * Z* L^{-T} xi,   xi ~ N(0, I_m)
+            (+ sigma * eta per point when noisy_posterior)
+
+        ``xi`` ([m, num_samples]) and ``eta`` ([num_samples, n*]) are drawn
+        from ``generator`` unless passed in.
+        """
+        cache = self._cache
+        zs = self.kernel.features(params, cache["basis"], x, is_train=is_train)
+        mean = cache["mu"] + (zs @ cache["w"][:, None])[:, 0]
+        m = cache["chol_c"].shape[0]
+        if xi is None:
+            xi = torch.randn((m, num_samples), generator=generator, dtype=torch.float32,
+                             device=generator.device)
+        # cov(L^{-T} xi) = C^{-1}
+        half = torch.linalg.solve_triangular(cache["chol_c"].T, xi.to(zs.device),
+                                             upper=True)
+        sigma = torch.sqrt(cache["sigma2"])
+        f = mean[None, :] + sigma * (zs @ half).T
+        if noisy_posterior:
+            if eta is None:
+                eta = torch.randn(tuple(f.shape), generator=generator, dtype=torch.float32,
+                                  device=generator.device)
+            f = f + sigma * eta.to(f.device)
+        return f

@@ -34,9 +34,10 @@ operand is the forward kernel applied to ``g`` (the operator is symmetric),
 the cotangent of the panels is K3. On the GPU there is no "resident einsum
 below a size budget" branch: the device alone picks kernel or plain version.
 
-``launch_count`` counts launches of the forward kernel and
-``bwd_launch_count`` those of K3 (each incremented only where its kernel is
-launched), so a run can show that its main path went through the kernels.
+``launch_count`` counts launches of the forward kernel (and
+``launch_count_by_batch`` them by batch width) and ``bwd_launch_count``
+those of K3 (each incremented only where its kernel is launched), so a run
+can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -54,9 +55,10 @@ import torch
 from .block_sparse import BLOCK, BlockLayout, check_block_cols, permute_in, permute_out
 
 # Launches of the forward kernel / of K3 since the last reset (set to 0 to
-# reset).
+# reset); the forward kernel's also by batch width (clear() to reset).
 launch_count = 0
 bwd_launch_count = 0
+launch_count_by_batch: dict = {}
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = (_CSRC / "block_ell_spmv.cu", _CSRC / "block_ell_bwd_blocks.cu",
@@ -265,6 +267,7 @@ def block_matvec_cuda(bc_flat, blocks, pv, *, s_max: int):
     if err != 0:
         raise RuntimeError(f"block_ell_spmv: launch failed with cudaError {err}")
     launch_count += 1
+    launch_count_by_batch[batch] = launch_count_by_batch.get(batch, 0) + 1
     return out
 
 

@@ -13,8 +13,16 @@ path each is one launch of the CUDA SpMV kernel (degree 256, 6 iterations:
 shift-invert mode over a sparse LU): for spectral bands below the f32
 assembly noise floor, as on a 1-D curve at 262k points.
 
-LOBPCG (a wrapper of JAX's library solver) and single-vector Lanczos are
-not ported yet.
+``lobpcg_smallest`` is block LOBPCG on the shifted operator
+``upper_bound * I - A`` (the default large-N solver): a step-for-step copy
+of the library routine the JAX package wraps
+(``jax.experimental.sparse.linalg.lobpcg_standard``, no locking, SVQB
+orthonormalization, ``P`` from the Rayleigh-Ritz rotation), private to this
+module. Each iteration applies the operator twice: to ``[X, P, R]`` (3m
+columns) and to ``X`` (m columns), plus one apply to the start block.
+
+``lanczos_eigh`` is single-vector Lanczos with full reorthogonalization
+(two passes a step), for LOVE's root decomposition of a train covariance.
 """
 
 from __future__ import annotations
@@ -22,6 +30,228 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+
+
+# Relative breakdown threshold: f32 residuals after double
+# reorthogonalization carry ~1e-7-relative roundoff, so stop well above it.
+_BREAKDOWN_RTOL = 1e-5
+
+
+def lanczos_eigh(matvec: Callable, v0: torch.Tensor, num_modes: int, num_steps: int):
+    """Smallest ``num_modes`` eigenpairs of the symmetric operator behind
+    ``matvec`` by full-reorthogonalization Lanczos.
+
+    Args:
+      matvec: symmetric linear map [N] -> [N] (or [N, 1] -> [N, 1]).
+      v0: [N] start vector (any nonzero vector; drawn by the caller).
+      num_modes: number of smallest eigenpairs to return.
+      num_steps: Krylov dimension m >= num_modes.
+
+    Returns:
+      (eigval [num_modes], eigvec [N, num_modes]) sorted ascending. After a
+      breakdown (the Krylov space exhausted) the spurious Ritz pairs come
+      back as +inf values with NaN vectors. The loop makes no host read:
+      the breakdown flag stays a device boolean.
+    """
+    n = v0.shape[0]
+    m = int(min(num_steps, n))
+    num_modes = int(min(num_modes, m))
+    dtype, device = v0.dtype, v0.device
+
+    basis = torch.zeros((m, n), dtype=dtype, device=device)
+    alphas = torch.zeros((m,), dtype=dtype, device=device)
+    betas = torch.zeros((m,), dtype=dtype, device=device)
+    q = v0 / torch.linalg.norm(v0)
+    alive = torch.ones((), dtype=torch.bool, device=device)
+    scale = torch.zeros((), dtype=dtype, device=device)
+    for j in range(m):
+        basis[j] = q
+        w = matvec(q).reshape(q.shape)
+        alpha = torch.dot(q, w)
+        # Full reorthogonalization, twice: unfilled rows of ``basis`` are
+        # zero and project out nothing.
+        for _ in range(2):
+            w = w - basis.T @ (basis @ w)
+        beta = torch.linalg.norm(w)
+        # a residual this far below the running operator scale is
+        # reorthogonalization roundoff: the Krylov space is exhausted
+        scale = torch.maximum(scale, torch.abs(alpha) + beta)
+        alive_next = alive & (beta > _BREAKDOWN_RTOL * scale)
+        q = torch.where(alive_next, w / torch.where(beta == 0, 1.0, beta), 0.0)
+        alphas[j] = torch.where(alive, alpha, 0.0)
+        betas[j] = torch.where(alive_next, beta, 0.0)
+        alive = alive_next
+
+    # Ritz pairs of the tridiagonal. After a breakdown the trailing block is
+    # zero; its spurious zero Ritz values have no support on the valid rows
+    # and go to +inf before sorting.
+    filled = betas > 0
+    valid = torch.cat([torch.ones((1,), dtype=torch.bool, device=device), filled[:-1]])
+    off = betas[:-1] * filled[:-1]
+    t = (torch.diag(torch.where(valid, alphas, 0.0)) + torch.diag(off, 1)
+         + torch.diag(off, -1))
+    evals, evecs = torch.linalg.eigh(t)
+    support = torch.sum(torch.square(evecs) * valid[:, None], dim=0)
+    evals = torch.where(support > 0.5, evals, torch.inf)
+    sel = torch.argsort(evals, stable=True)[:num_modes]
+    ritz_vec = basis.T @ evecs[:, sel]
+    ritz_vec = ritz_vec / torch.linalg.norm(ritz_vec, dim=0, keepdim=True)
+    return evals[sel], ritz_vec
+
+
+# -- block LOBPCG (jax.experimental.sparse.linalg.lobpcg_standard) -----------
+
+
+def _eigh_descending(a):
+    """Eigenpairs of the symmetrized ``a``, largest first (the library's
+    ``_eigh_ascending``, which despite its name returns descending order)."""
+    w, v = torch.linalg.eigh((a + a.T) / 2.0)
+    return w.flip(0), v.flip(1)
+
+
+def _svqb(x):
+    """Truncated orthonormal basis of ``x`` by SVQB: normalize the columns,
+    eigendecompose the [k, k] Gram, scale; directions whose Gram eigenvalue
+    falls below eps times the largest are zeroed, not normalized."""
+    norms = torch.linalg.norm(x, dim=0, keepdim=True)
+    x = x / torch.where(norms == 0, 1.0, norms)
+    inner = x.T @ x
+    w, v = _eigh_descending(inner)
+    tau = torch.finfo(x.dtype).eps * w[0]
+    padded = torch.maximum(w, tau)
+    sqrted = torch.where(tau > 0, padded, 1.0) ** -0.5  # tau == 0: x was all zeros
+    ortho = x @ (v * sqrted[None, :])
+    keep = ((w > tau) & (torch.diagonal(inner) > 0.0))[None, :]
+    ortho = ortho * keep.to(ortho.dtype)
+    norms = torch.linalg.norm(ortho, dim=0, keepdim=True)
+    keep = keep & (norms > 0.0)
+    return ortho / torch.where(keep, norms, 1.0)
+
+
+def _orthonormalize(basis):
+    for _ in range(2):  # twice is enough
+        basis = _svqb(basis)
+    return basis
+
+
+def _project_out(basis, u):
+    """The component of ``u`` orthogonal to the orthonormal (zero columns
+    allowed) ``basis``, orthonormalized; columns that may have picked up a
+    ``basis`` component through the normalization are zeroed, so
+    ``[basis, u]`` stays zero-or-orthonormal."""
+    for _ in range(2):
+        u = u - basis @ (basis.T @ u)
+        u = _orthonormalize(u)
+    # end on a subtraction of the basis, then drop suspicious columns
+    for _ in range(2):
+        u = u - basis @ (basis.T @ u)
+    norm_u = torch.linalg.norm(u, dim=0, keepdim=True)
+    return u * (norm_u >= 0.99).to(u.dtype)
+
+
+def _rayleigh_ritz_orth(a, s):
+    """Eigenpairs (descending) of ``a`` projected onto the orthonormal
+    (zero columns allowed) ``s``."""
+    return _eigh_descending(s.T @ a(s))
+
+
+def _extend_basis(x, m):
+    """``m`` directions orthonormal to the orthonormal [n, k] ``x``, by a
+    block Householder reflector built from the SVD of its top [k, k] block:
+    H(w) maps vstack(0, I_m, 0) onto the extension."""
+    n, k = x.shape
+    upper, lower = x[:k], x[k:]
+    u, s, vt = torch.linalg.svd(upper)
+    y = torch.cat([upper + u @ vt, lower], dim=0)
+    w = y @ (vt.T * ((2.0 * (1.0 + s)) ** -0.5)[None, :])
+    # w @ w[k:].T @ vstack(I_m, 0), with the product by the identity rows
+    # taken as a slice
+    h = -2.0 * (w @ w[k:k + m].T)
+    h[k:k + m] += torch.eye(m, dtype=x.dtype, device=x.device)
+    return h
+
+
+def _lobpcg_standard(a: Callable, x: torch.Tensor, max_iter: int, tol: Optional[float]):
+    """The largest ``k`` eigenpairs of the symmetric operator ``a`` from the
+    [n, k] start block ``x``: (theta [k] descending, X [n, k], iterations).
+
+    Stops after ``max_iter`` iterations, or once every residual is below
+    ``tol`` relative to the f32 error of computing it. With ``tol <= 0``
+    (never converged) the loop makes no host read; otherwise it reads the
+    converged count once an iteration."""
+    n, k = x.shape
+    if k == 0:
+        raise ValueError(f"must have search dim > 0, got {k}")
+    if k * 5 >= n:
+        raise ValueError(f"expected search dim * 5 < matrix dim (got {k * 5}, {n})")
+    if tol is None:
+        tol = float(torch.finfo(x.dtype).eps)
+
+    x = _orthonormalize(x)
+    p = _extend_basis(x, k)
+    ax = a(x)
+    if ax.shape != x.shape or ax.dtype != x.dtype:
+        raise ValueError(f"the operator maps {tuple(x.shape)} {x.dtype} to "
+                         f"{tuple(ax.shape)} {ax.dtype}")
+    theta = torch.sum(x * ax, dim=0, keepdim=True)
+    r = ax - theta * x
+
+    i = 0
+    while i < max_iter:
+        # invariants: X, P, R orthonormal; columns of P and R may be zero
+        r = _project_out(torch.cat((x, p), dim=1), r)
+        xpr = torch.cat((x, p, r), dim=1)
+        theta, q = _rayleigh_ritz_orth(a, xpr)
+        b = q[:, :k]
+        b = b / torch.linalg.norm(b, dim=0, keepdim=True)
+        x = xpr @ b
+        x = x / torch.linalg.norm(x, dim=0, keepdim=True)
+        # P: orthogonalize vstack(0, Q[k:, :k]) against Q[:, :k] in the
+        # standard basis through the quadrant Q[:k, k:], then map with XPR
+        qp, _ = torch.linalg.qr(q[:k, k:].T)
+        p = xpr @ (q[:, k:] @ qp)
+        norm_p = torch.linalg.norm(p, dim=0, keepdim=True)
+        p = p / torch.where(norm_p == 0, 1.0, norm_p)
+        ax = a(x)
+        theta = theta[None, :k]
+        r = ax - theta * x
+        i += 1
+        if tol > 0:
+            # self-consistency: |r| against the f32 error of computing it
+            reltol = (torch.linalg.norm(ax, dim=0) + theta[0]) * n * 10
+            if int(torch.sum(torch.linalg.norm(r, dim=0) < tol * reltol)) >= k:
+                break
+    return theta[0, :], x, i
+
+
+def lobpcg_smallest(matvec: Callable, x0: torch.Tensor, upper_bound, max_iter: int = 200,
+                    tol: Optional[float] = 0.0):
+    """Smallest-m eigenpairs of a symmetric PSD operator by block LOBPCG on
+    the shifted operator ``upper_bound * I - A``.
+
+    The block iteration resolves degenerate and clustered low eigenvalues
+    (paired harmonics, graph components), which single-vector Lanczos
+    cannot.
+
+    Args:
+      matvec: the operator A, [N, m] -> [N, m] and [N, 3m] -> [N, 3m].
+      x0: [N, m] start block (drawn by the caller).
+      upper_bound: scalar >= lambda_max(A) (``gershgorin_bound``).
+      tol: residual tolerance. The default 0.0 runs all ``max_iter``
+        iterations: convergence is measured against the shifted eigenvalues
+        (upper_bound - lambda ~ upper_bound), which would declare the
+        smallest-lambda modes converged far too early.
+    Returns: (eigval [m] ascending, eigvec [N, m]).
+    """
+    c = torch.as_tensor(upper_bound, dtype=x0.dtype, device=x0.device).reshape(())
+
+    def shifted(v):
+        return c * v - matvec(v)
+
+    theta, u, _ = _lobpcg_standard(shifted, x0, max_iter, tol)
+    vals = c - theta
+    order = torch.argsort(vals, stable=True)
+    return vals[order], u[:, order]
 
 
 def _whiten(x):

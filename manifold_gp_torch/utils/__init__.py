@@ -5,19 +5,23 @@ from .convert import (
     params_from_jax,
     params_to_numpy,
 )
-from .evaluate import gaussian_nll, test_model
+from .evaluate import gaussian_nll, gaussian_nll_stochastic, test_model
+from .sampling import grid_uniform, sample_posterior
 from .train import ReduceLROnPlateau, manifold_informed_train, vanilla_train
 
 __all__ = [
     "ReduceLROnPlateau",
     "constrained_values",
     "gaussian_nll",
+    "gaussian_nll_stochastic",
+    "grid_uniform",
     "load_params",
     "load_training_state",
     "manifold_informed_train",
     "params_from_constrained",
     "params_from_jax",
     "params_to_numpy",
+    "sample_posterior",
     "save_params",
     "save_training_state",
     "test_model",

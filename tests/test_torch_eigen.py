@@ -6,6 +6,7 @@ f32 sum order alone. Eigenvalues are compared directly; eigenvectors only
 through their span (principal angles), never by sign or rotation inside a
 degenerate cluster."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,3 +81,85 @@ def test_whiten_orthonormalizes_like_jax():
     np.testing.assert_allclose(t.T @ t, np.eye(9), atol=1e-5)
     assert _max_principal_angle_sin(t, x) < 1e-5
     assert _max_principal_angle_sin(t, j) < 1e-5
+
+
+# -- Lanczos (LOVE's root decomposition): twins of tests/test_eigen.py ------
+
+
+def test_lanczos_matches_dense_eigh_and_jax_on_spd_matrix():
+    """Twin of test_eigen.py::test_lanczos_matches_dense_eigh_on_spd_matrix
+    on its own draw: the oracle tolerances of the JAX test, and JAX's Ritz
+    values on the same start vector within 1e-5 (f32 sum order)."""
+    rng = np.random.default_rng(21)
+    n, m = 120, 10
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    spd = a @ a.T / n + np.diag(np.linspace(0.1, 3.0, n)).astype(np.float32)
+    spd = (0.5 * (spd + spd.T)).astype(np.float32)
+    dense_val, dense_vec = np.linalg.eigh(spd)
+    v0 = rng.standard_normal(n).astype(np.float32)
+    st = torch.from_numpy(spd)
+    val, vec = teig.lanczos_eigh(lambda v: st @ v, torch.from_numpy(v0), m, 3 * m + 60)
+    val, vec = val.numpy(), vec.numpy()
+    np.testing.assert_allclose(val, dense_val[:m], rtol=2e-3, atol=2e-4)
+    for j in range(m):
+        assert abs(float(vec[:, j] @ dense_vec[:, j])) > 0.99, j
+    jval, _ = jeig.lanczos_eigh(lambda v: jnp.asarray(spd) @ v, jnp.asarray(v0), m, 3 * m + 60)
+    np.testing.assert_allclose(val, np.asarray(jval), atol=1e-5)
+
+
+def test_lanczos_on_graph_laplacian_matches_jax():
+    """Twin of test_eigen.py::test_lanczos_on_graph_laplacian: the smallest
+    Laplacian eigenpairs of the ELL matvec against dense eigh (the JAX
+    test's tolerances: values rtol 5e-3 / atol 1e-4, residuals 5e-3,
+    orthonormality 1e-4) and against JAX's Ritz values on the same start
+    vector (1e-5)."""
+    from _torch_data import small_cloud
+
+    x, _ = small_cloud()
+    tg = tgraph.build_graph(x, 6, device="cpu")
+    tc = tlap.laplacian_coeffs(tg, 0.35)
+    jg = jgraph.build_graph(x, 6)
+    jc = jlap.laplacian_coeffs(jg, 0.35)
+    n = tg.num_nodes
+    dense = tlap.laplacian_dense(tg, tc).numpy()
+    dense_val = np.linalg.eigvalsh(0.5 * (dense + dense.T))
+    m = 12
+    v0 = np.random.default_rng(3).standard_normal(n).astype(np.float32)
+
+    def mv(v):
+        return tlap.laplacian_matvec(tg, tc, v, "symmetric")
+
+    val, vec = teig.lanczos_eigh(mv, torch.from_numpy(v0), m, 120)
+    val, vec = val.numpy(), vec.numpy()
+    np.testing.assert_allclose(val, dense_val[:m], rtol=5e-3, atol=1e-4)
+    for j in range(m):
+        r = mv(torch.from_numpy(vec[:, j])).numpy() - val[j] * vec[:, j]
+        assert np.linalg.norm(r) < 5e-3, j
+    np.testing.assert_allclose(vec.T @ vec, np.eye(m), atol=1e-4)
+    jval, _ = jax.jit(lambda v: jeig.lanczos_eigh(
+        lambda u: jlap.laplacian_matvec(jg, jc, u, "symmetric"), v, m, 120))(jnp.asarray(v0))
+    np.testing.assert_allclose(val, np.asarray(jval), atol=1e-5)
+
+
+def test_lanczos_breakdown_rank_deficient_like_jax():
+    """Twin of test_eigen.py::test_lanczos_breakdown_rank_deficient: Krylov
+    exhaustion (identity plus rank 3) gives no spurious small eigenvalue;
+    the spurious post-breakdown pairs come back as +inf, as in JAX."""
+    n = 64
+    rng = np.random.default_rng(0)
+    u, _ = np.linalg.qr(rng.standard_normal((n, 3)))
+    spd = (np.eye(n) + (u * np.array([1.0, 2.0, 3.0])) @ u.T).astype(np.float32)
+    v0 = rng.standard_normal(n).astype(np.float32)
+    st = torch.from_numpy(spd)
+    val, _ = teig.lanczos_eigh(lambda v: st @ v, torch.from_numpy(v0), num_modes=4,
+                               num_steps=30)
+    val = val.numpy()
+    np.testing.assert_allclose(val[0], 1.0, rtol=1e-4)
+    assert np.all(val >= 0.5), val
+    jval, _ = jeig.lanczos_eigh(lambda v: jnp.asarray(spd) @ v, jnp.asarray(v0), 4, 30)
+    np.testing.assert_allclose(val, np.asarray(jval), rtol=1e-5)
+    full, vecs = teig.lanczos_eigh(lambda v: st @ v, torch.from_numpy(v0), 30, 30)
+    jfull, _ = jeig.lanczos_eigh(lambda v: jnp.asarray(spd) @ v, jnp.asarray(v0), 30, 30)
+    assert np.array_equal(np.isinf(full.numpy()), np.isinf(np.asarray(jfull)))
+    assert np.isinf(full.numpy()).sum() > 0
+    assert torch.isnan(vecs[:, torch.isinf(full)]).all()

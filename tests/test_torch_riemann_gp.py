@@ -137,14 +137,8 @@ def test_unported_paths_raise():
     cfg = tmgp.InferenceConfig(eigh_max_size=0, dense_operator_max_size=0, use_dia=False)
     kernel = tmgp.RiemannMaternKernel(nu=2, x=x_tr, nearest_neighbors=8, num_modes=10,
                                       cfg=cfg, device="cpu")
-    model = tmgp.RiemannGP(x_tr, y_tr, kernel, cfg=cfg)
-    p = model.init_params(**HYPERS)
-    with pytest.raises(NotImplementedError, match="lobpcg"):
-        kernel.eval_basis(p)  # the default eigensolver waits for a later slice
     with pytest.raises(NotImplementedError, match="semisupervised"):
         tmgp.RiemannGP(x_tr, y_tr, kernel, labeled=np.ones(len(y_tr), bool))
-    with pytest.raises(NotImplementedError, match="LOVE"):
-        model.eval(p, love_rank=5)
 
 
 def _subspace_distance(a, b):
