@@ -104,7 +104,29 @@ Phases (any failure exits non-zero before the result line is printed):
      its yardstick and bound): the DIA-vs-panel crossover on this card;
   9. the 16,384-point curve held to the JAX package's numbers
      (examples_torch/curve_pins.json): loss and gradients with shared
-     probes, serve RMSE/NLL on the host f64 basis.
+     probes, serve RMSE/NLL on the host f64 basis;
+  10. the semisupervised spiral (examples_torch/run_spiral.py): 10,010
+     points in R^20, 1,001 labeled, k = 10 (block-ELL, S = 3), 100 modes;
+     the pinned 30-epoch protocol: manifold_informed_train on the labeled
+     block's Schur complement (nested CG), test_model (block LOBPCG basis,
+     Nystrom features), the vanilla RBF GP (vanilla_train, BBMM above
+     max_cholesky = 1000) and the hybrid blend, with the launch counts reset
+     just before and read just after; requires forward launches at B = 64
+     and B = 1, K3 launches, finite results and examples/spiral_pins.json's
+     rule (IMGP beats vanilla, IMGP RMSE <= 1.2 x pin + 1e-4); prints the
+     median epoch, inner and outer CG iterations, the training's peak
+     memory, the LOBPCG basis seconds and one traced gradient's device idle
+     share; then holds the forward kernel (f32 panels at the trained
+     bandwidth, B = 1, 64, 100, 300) and K3 (f32 out, B = 1, 64) to their
+     plain versions at the spiral's layout, after the counts are read;
+  10a. the spiral at 5,005 points (500 labeled, block-ELL) held to the JAX
+     package's semisupervised loss and gradients at two points, and the
+     vanilla BBMM loss at the 10,010-point spiral's labeled points
+     (examples_torch/semisup_pins.json, tests/_semisup_pins.py; loss 1e-4,
+     gradients 5e-3 of the largest). At lengthscale 1 the two packages'
+     pivoted Cholesky picks different pivots among f32 ties, so there the
+     loss is held to the dense f64 loss within the largest deviation of
+     JAX's estimate over 32 probe seeds, and the port's pivots are printed.
 Then one JSON line with the kernel table, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -136,6 +158,7 @@ FWD_PER_GRADIENT = 150  # 24 Lanczos steps x 6 alone are 144
 K4_PER_GRADIENT = 192  # curve: 32 Lanczos steps x 3 Neumann applies x nu = 2
 PIVCHOL_BUILD = 90  # rank 15 x (3 Neumann applies x nu = 2) forward launches at B = 1
 PIVCHOL_INVARIANT = 1e-4  # ||M^-1 M x - x|| / ||x|| of the built preconditioner
+SPIRAL_EPOCHS = 30  # examples/spiral_pins.json's protocol (max_iter = 30)
 LOBPCG_MODES = 100  # the torus campaign's modes: LOBPCG's block width m
 LOBPCG_ITERS = 200  # InferenceConfig.eigensolver_max_iter: one apply at B = 3m
                     # and one at B = m an iteration, plus one at B = m
@@ -407,6 +430,84 @@ def arpack_oracle(graph, coeffs, m):
     return vals[order], vecs[:, order], coeffs.deg.cpu().numpy().astype(np.float64)
 
 
+def rademacher_draws(seed: int, shapes):
+    """The draws tests/_semisup_pins.py shares with the port: one +-1
+    float32 array per shape, in order from one numpy generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(2 * rng.integers(0, 2, shape) - 1).astype(np.float32) for shape in shapes]
+
+
+def semisup_parity(pins: dict, device) -> dict:
+    """Phase 10a: the port's losses and gradients at the points of
+    ``examples_torch/semisup_pins.json`` on the same probes: the
+    semisupervised Schur loss at 5,005 points and the vanilla BBMM loss at
+    the 10,010-point spiral's labeled points. Returns, for each pinned
+    point, the port's numbers, the loss's relative difference from the JAX
+    pin (and, where the pin has one, from its dense f64 loss), the largest
+    gradient difference over the largest pinned gradient, and for the
+    vanilla points the port's pivot order."""
+    import torch
+
+    from examples_torch.run_large import loss_and_grad
+    from examples_torch.run_spiral import build_problem
+    from manifold_gp_torch import InferenceConfig, RBFKernel, VanillaGP
+
+    cg_kw = dict(cg_tolerance=pins["cg_tolerance"], cg_max_iter=pins["cg_max_iter"])
+
+    def compare(loss, grads, pin):
+        scale = max(abs(v) for v in pin["grads"].values())
+        rec = {"loss": loss, "grads": {k: grads[k] for k in pin["grads"]},
+               "loss_rel": abs(loss - pin["loss"]) / abs(pin["loss"]),
+               "grad_rel_of_max": max(abs(grads[k] - v) for k, v in pin["grads"].items())
+               / scale}
+        if "exact_loss" in pin:
+            rec["exact_rel"] = abs(loss - pin["exact_loss"]) / abs(pin["exact_loss"])
+        return rec
+
+    sp = pins["semisup"]
+    model, labeled, *_ = build_problem(n=sp["n"], num_labeled=sp["num_labeled"], k=sp["k"],
+                                       device=device, max_cholesky=0,
+                                       num_probes=sp["num_probes"],
+                                       lanczos_max_iter=sp["lanczos_max_iter"], **cg_kw)
+    layout = model.kernel.block_layout
+    out = {"semisup_layout": {"layout": type(layout).__name__,
+                              "max_blocks": getattr(layout, "max_blocks", None),
+                              "num_row_blocks": getattr(layout, "num_row_blocks", None),
+                              "num_edges": int(model.kernel.graph.num_edges)}}
+    (probes,) = rademacher_draws(pins["probe_seed"], [(int(labeled.sum()), sp["num_probes"])])
+    probes = torch.from_numpy(probes).to(model.device)
+    for label, pin in sp["pins"].items():
+        loss, grads = loss_and_grad(model, model.init_params(**pin["hypers"]), probes=probes)
+        out[f"semisup_{label}"] = compare(loss, grads, pin)
+    vp = pins["vanilla"]
+    full, labeled, train_y, *_ = build_problem(n=vp["n"], num_labeled=vp["num_labeled"],
+                                               device=device)
+    cfg = InferenceConfig(max_cholesky=1000, num_probes=vp["num_probes"],
+                          lanczos_max_iter=vp["lanczos_max_iter"], **cg_kw)
+    vmodel = VanillaGP(full.train_x, train_y, RBFKernel(device=device), cfg=cfg)
+    n_lab, p = int(labeled.sum()), vp["num_probes"]
+    z1, z2, zr = (torch.from_numpy(z).to(vmodel.device) for z in rademacher_draws(
+        pins["probe_seed"], [(vp["precond_rank"], p), (n_lab, p), (n_lab, p)]))
+    for label, pin in vp["pins"].items():
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in vmodel.init_params(**pin["hypers"]).items()}
+        with torch.no_grad():
+            # zm = L z1 + sqrt(d) z2 from the port's own preconditioner:
+            # what its sample() draws, on the JAX pins' numpy draws
+            _, pobj = vmodel.pivchol_precond(params)
+            zm = pobj.L @ z1 + torch.sqrt(pobj.d)[:, None] * z2
+        loss = vmodel.mll_loss(params, probes=(zm, zr))
+        names = list(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in names])
+        out[f"vanilla_{label}"] = {
+            **compare(float(loss.detach()), {k: float(g) for k, g in zip(names, grads)}, pin),
+            "hold_loss": pin["hold_loss"],
+            "pivots": torch.argmax(pobj.L.abs(), dim=0).tolist()}
+    return out
+
+
 def cloud_vs_arpack(dev):
     """Phase 3M: ``eval_basis`` of a default-config kernel on the
     SRMNIST-shaped cloud (LOBPCG on the forward kernel), held to
@@ -500,7 +601,12 @@ def main():
 
     from manifold_gp_torch.ops import cuda_spmv, dia
     from manifold_gp_torch.ops.graph import build_graph
-    from manifold_gp_torch.ops.block_sparse import assemble, build_block_layout, permute_in
+    from manifold_gp_torch.ops.block_sparse import (
+        BlockLayout,
+        assemble,
+        build_block_layout,
+        permute_in,
+    )
     from manifold_gp_torch.ops.laplacian import laplacian_coeffs
     from examples_torch.run_large import (
         CAMPAIGN_HYPERS,
@@ -1352,10 +1458,124 @@ def main():
                            "grad_rel_of_max": cgerr, "serve": serve_checks,
                            "num_edges": rec["num_edges"]}
 
+    # -- phase 10: the semisupervised spiral at 10,010 points ----------------
+    print("== phase 10: spiral10k-semisup (Schur IMGP, vanilla baseline, blend)")
+    from examples_torch.profile_gradient import trace_gradient
+    from examples_torch.run_spiral import PINS_PATH, check_pins, run_experiment
+    from manifold_gp_torch.ops import cg as cg_ops
+
+    del r16c
+    torch.cuda.empty_cache()
+    cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = 0
+    cuda_spmv.launch_count_by_batch.clear()
+    cuda_spmv.bwd_launch_count_by_batch.clear()
+    handles = {}
+    spiral = run_experiment(max_iter=SPIRAL_EPOCHS, device=dev, handles=handles)
+    spiral_fwd, spiral_bwd = cuda_spmv.launch_count, cuda_spmv.bwd_launch_count
+    spiral_fwd_by = {str(b): c for b, c in sorted(cuda_spmv.launch_count_by_batch.items())}
+    spiral_bwd_by = {str(b): c for b, c in sorted(cuda_spmv.bwd_launch_count_by_batch.items())}
+    smodel, sparams = handles["model"], handles["params"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cuda_spmv.launch_count_by_batch.clear()
+    smodel.kernel.eval_basis(sparams)
+    torch.cuda.synchronize()
+    spiral_basis_s = time.perf_counter() - t0
+    basis_by = {str(b): c for b, c in sorted(cuda_spmv.launch_count_by_batch.items())}
+    spiral_profile = trace_gradient(smodel, sparams,
+                                    generator=torch.Generator(device=dev).manual_seed(5))
+    spiral.update(launches={"forward": spiral_fwd, "bwd_blocks": spiral_bwd,
+                            "forward_by_batch": spiral_fwd_by, "bwd_blocks_by_batch": spiral_bwd_by},
+                  basis_s=spiral_basis_s, basis_launches_by_batch=basis_by,
+                  gradient_profile=spiral_profile)
+    pins_failures = check_pins(spiral, json.loads(PINS_PATH.read_text()))
+    inner, outer = spiral["inner_cg"], spiral["outer_cg"]
+    print(f"  layout {spiral['layout']} S={spiral['max_blocks']} row blocks="
+          f"{spiral['num_row_blocks']}; {SPIRAL_EPOCHS} epochs in {spiral['train_s']:.2f} s "
+          f"(median epoch {spiral['epoch_s_median']:.4f} s, first {spiral['epoch_s_first']:.3f} s)")
+    print(f"  launches (training and IMGP eval): forward {spiral_fwd} by width {spiral_fwd_by}, "
+          f"K3 {spiral_bwd} by width {spiral_bwd_by}")
+    print(f"  inner CG per Schur apply: mean {inner.get('mean', 0):.3f}, max {inner.get('max', 0)} "
+          f"({inner['solves']} solves); outer CG: mean {outer.get('mean', 0):.3f}, max "
+          f"{outer.get('max', 0)} ({outer['solves']} solves); training peak "
+          f"{spiral['train_peak_mem_bytes'] / 1e9:.3f} GB, allocated after the first / last "
+          f"epoch {spiral['allocated_bytes_after_epoch']}")
+    print(f"  IMGP RMSE {spiral['imgp_rmse']:.6f} NLL {spiral['imgp_nll']:.6f} (eval "
+          f"{spiral['imgp_eval_s']:.2f} s); vanilla RMSE {spiral['vanilla_rmse']:.6f} NLL "
+          f"{spiral['vanilla_nll']:.6f} ({spiral['vanilla_s']:.2f} s); advantage "
+          f"{spiral['advantage']:.3f}; hybrid blend RMSE {spiral['hybrid_rmse']:.6f} NLL "
+          f"{spiral['hybrid_nll']:.6f} ({spiral['hybrid_s']:.2f} s)")
+    print(f"  LOBPCG basis {spiral_basis_s:.3f} s, launches by width {basis_by}; one gradient at "
+          f"the trained point: wall {spiral_profile['wall_ms']:.1f} ms, device "
+          f"{spiral_profile['device_ms']:.1f} ms, idle {spiral_profile['device_idle_share']:.3f}")
+    print(f"  check-pins ({PINS_PATH.relative_to(ROOT)}): "
+          f"{'OK' if not pins_failures else pins_failures}")
+    report["spiral_10k"] = spiral
+    for key in ("imgp_loss", "imgp_rmse", "imgp_nll", "vanilla_loss", "vanilla_rmse",
+                "vanilla_nll", "hybrid_rmse", "hybrid_nll"):
+        if not np.isfinite(spiral[key]):
+            fail(f"spiral {key} is not finite: {spiral[key]}")
+    if not (spiral_fwd_by.get("64", 0) > 0 and spiral_fwd_by.get("1", 0) > 0):
+        fail(f"the spiral's training made no forward launch at B = 64 or B = 1: {spiral_fwd_by}")
+    if spiral_bwd <= 0:
+        fail("the spiral's training launched no panel cotangent (K3)")
+    if pins_failures:
+        fail(f"spiral check-pins: {pins_failures}")
+    # The kernels against their plain versions at the spiral's own layout
+    # (S = 3, the widths its training and basis launch), after the counts
+    # are read: the comparisons are not the main path's launches.
+    slayout = smodel.kernel.block_layout
+    if not isinstance(slayout, BlockLayout):
+        fail(f"the spiral took {type(slayout).__name__}, not block-ELL")
+    with torch.no_grad():
+        scoeffs = smodel.kernel.coeffs(sparams)
+        spanels = assemble(slayout, scoeffs.diag, scoeffs.triu)
+    sgen = torch.Generator(device=dev).manual_seed(10)
+    spiral_cmp = []
+    for batch in (1, 64, LOBPCG_MODES, 3 * LOBPCG_MODES):
+        v = torch.randn((slayout.num_nodes, batch), generator=sgen, device=dev)
+        spiral_cmp.append(compare(slayout, spanels, permute_in(slayout, v).contiguous(),
+                                  "spiral float32"))
+    for batch in (1, 64):
+        v = torch.randn((slayout.num_nodes, batch), generator=sgen, device=dev)
+        gct = torch.randn((slayout.num_padded, batch), generator=sgen, device=dev)
+        spiral_cmp.append(compare_bwd(slayout, gct, permute_in(slayout, v).contiguous(),
+                                      torch.float32, "spiral bwd float32"))
+    spiral["kernel_vs_plain"] = spiral_cmp
+    del handles, smodel, sparams, spanels, scoeffs, v, gct
+
+    print("== phase 10a: spiral5k-semisup parity (and the vanilla BBMM loss) vs the JAX pins")
+    spins = json.loads((ROOT / "examples_torch" / "semisup_pins.json").read_text())
+    cg_ops.iteration_log = None
+    parity = semisup_parity(spins, device=dev)
+    lay = parity.pop("semisup_layout")
+    for key in ("layout", "max_blocks", "num_row_blocks"):
+        if lay[key] != spins["semisup"][key]:
+            fail(f"spiral5k {key}: port {lay[key]} != JAX {spins['semisup'][key]}")
+    if abs(lay["num_edges"] - spins["semisup"]["num_edges"]) > EDGE_TIES * lay["num_edges"]:
+        fail(f"spiral5k edges: port {lay['num_edges']} vs JAX {spins['semisup']['num_edges']}")
+    vpins = spins["vanilla"]["pins"]
+    for label, rec in parity.items():
+        hold_loss = rec.get("hold_loss", True)
+        pin = vpins.get(label.removeprefix("vanilla_"), {}) if label.startswith("vanilla") else {}
+        held = (f"rtol {spins['loss_rtol']}" if hold_loss else
+                f"vs the f64 loss {rec['exact_rel']:.3e}, limit {pin['exact_rtol']:.3e}")
+        print(f"  {label}: loss {rec['loss']:.7f} rel {rec['loss_rel']:.2e} ({held}); "
+              f"gradients {rec['grad_rel_of_max']:.2e} of the largest (rtol {spins['grad_rtol']})"
+              + (f"; pivots {rec['pivots']}" if "pivots" in rec else ""))
+        if hold_loss and not rec["loss_rel"] <= spins["loss_rtol"]:
+            fail(f"{label} loss differs from the JAX pin by {rec['loss_rel']:.2e}")
+        if not hold_loss and not rec["exact_rel"] <= pin["exact_rtol"]:
+            fail(f"{label} loss differs from the f64 loss by {rec['exact_rel']:.2e}")
+        if not rec["grad_rel_of_max"] <= spins["grad_rtol"]:
+            fail(f"{label} gradients differ from the JAX pins by {rec['grad_rel_of_max']:.2e}")
+    report["spiral_parity"] = {"layout": lay, **parity}
+
     # -- result --------------------------------------------------------------
     f32 = main[0]
     bwd = next(r for r in main_bwd if r["batch"] == 48 and r["out_dtype"] == "float32")
-    if min(launches, lobpcg_launches, train_fwd, train_bwd, curve_counts["dia_launches"]) <= 0:
+    if min(launches, lobpcg_launches, train_fwd, train_bwd, curve_counts["dia_launches"],
+           spiral_fwd, spiral_bwd) <= 0:
         fail("a kernel of a main path was never launched on it")
     kernels = [{
         "name": "block_ell_spmv",
@@ -1369,7 +1589,9 @@ def main():
             "serve_lobpcg_by_batch": report["serve_262k_lobpcg"]["spmv_launches_by_batch"],
             "cloud_10k_lobpcg": report["cloud_10k"]["spmv_launches"], "train": train_fwd,
             "precond_build": tres["gradients"]["trained"]["pivchol"]["build_launches"][
-                "spmv_launches"]},
+                "spmv_launches"],
+            "spiral_semisup": spiral_fwd, "spiral_semisup_by_batch": spiral_fwd_by,
+            "spiral_basis_by_batch": spiral["basis_launches_by_batch"]},
         "max_abs_err": f32["stream_matvec_call"]["max_abs_err"],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -1390,7 +1612,9 @@ def main():
         "source": "manifold_gp_torch/csrc/block_ell_bwd_blocks.cu",
         "replaces": "manifold_gp_tpu/ops/pallas_spmv.py:317",
         "launches": train_bwd,
-        "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd},
+        "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd,
+                             "spiral_semisup": spiral_bwd,
+                             "spiral_semisup_by_batch": spiral_bwd_by},
         "max_abs_err": bwd["block_bwd_blocks"]["max_abs_err"],
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

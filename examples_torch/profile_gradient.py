@@ -37,21 +37,21 @@ from examples_torch.run_large import (  # noqa: E402
 )
 
 
-def profile_gradient(n: int, trained: bool, top: int = 12, manifold: str = "torus",
-                     precond: str = "jacobi") -> dict:
+def trace_gradient(model, params, generator=None, precond_override=None, probes=None,
+                   top: int = 12) -> dict:
+    """Trace one ``mll_loss`` gradient of ``model`` (after a warm-up one)
+    with ``torch.profiler``: the loss, the wall ms, the summed device ms of
+    every kernel and memcpy, the device's busy and idle share of the wall
+    time, and the ``top`` kernels by device time with their launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    camp = build_campaign(n=n, device="cuda", manifold=manifold, precond_type=precond)
-    model = camp.model
-    params = model.init_params(**(MANIFOLDS[manifold]["hypers"] if trained else INITIAL_HYPERS))
-    pobj, build_s, _ = build_precond(model, params, precond)
-    generator = torch.Generator(device=model.device).manual_seed(1)
-    loss_and_grad(model, params, generator=generator, precond_override=pobj)
+    kw = dict(generator=generator, precond_override=precond_override, probes=probes)
+    loss_and_grad(model, params, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss, _ = loss_and_grad(model, params, generator=generator, precond_override=pobj)
+        loss, _ = loss_and_grad(model, params, **kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -59,12 +59,6 @@ def profile_gradient(n: int, trained: bool, top: int = 12, manifold: str = "toru
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     return {
-        "n": n,
-        "manifold": manifold,
-        "hyperparameters": "trained" if trained else "initial",
-        "precond": precond,
-        "precond_build_s": build_s,
-        "device": torch.cuda.get_device_name(0),
         "loss": loss,
         "wall_ms": wall_ms,
         "device_ms": device_ms,
@@ -72,6 +66,26 @@ def profile_gradient(n: int, trained: bool, top: int = 12, manifold: str = "toru
         "device_idle_share": 1.0 - device_ms / wall_ms,
         "kernels": [{"name": k[:80], "device_ms": ms, "share_of_wall": ms / wall_ms,
                      "launches": c} for k, ms, c in rows[:top]],
+    }
+
+
+def profile_gradient(n: int, trained: bool, top: int = 12, manifold: str = "torus",
+                     precond: str = "jacobi") -> dict:
+    import torch
+
+    camp = build_campaign(n=n, device="cuda", manifold=manifold, precond_type=precond)
+    model = camp.model
+    params = model.init_params(**(MANIFOLDS[manifold]["hypers"] if trained else INITIAL_HYPERS))
+    pobj, build_s, _ = build_precond(model, params, precond)
+    generator = torch.Generator(device=model.device).manual_seed(1)
+    return {
+        "n": n,
+        "manifold": manifold,
+        "hyperparameters": "trained" if trained else "initial",
+        "precond": precond,
+        "precond_build_s": build_s,
+        "device": torch.cuda.get_device_name(0),
+        **trace_gradient(model, params, generator=generator, precond_override=pobj, top=top),
     }
 
 

@@ -17,8 +17,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .config import DEFAULT_CONFIG, InferenceConfig, resolve_device  # noqa: E402
-from .kernels import RiemannKernel, RiemannMaternKernel  # noqa: E402
-from .models import Posterior, RiemannGP  # noqa: E402
+from .kernels import MaternKernel, RBFKernel, RiemannKernel, RiemannMaternKernel  # noqa: E402
+from .models import Posterior, RiemannGP, VanillaGP  # noqa: E402
 from .parameters import GreaterThan, Interval, Positive  # noqa: E402
 from .priors import GammaPrior, InverseGammaPrior, NormalPrior  # noqa: E402
 
@@ -28,10 +28,13 @@ __all__ = [
     "DEFAULT_CONFIG",
     "InferenceConfig",
     "resolve_device",
+    "MaternKernel",
+    "RBFKernel",
     "RiemannKernel",
     "RiemannMaternKernel",
     "Posterior",
     "RiemannGP",
+    "VanillaGP",
     "GreaterThan",
     "Interval",
     "Positive",

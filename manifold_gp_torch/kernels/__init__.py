@@ -1,3 +1,10 @@
+from .euclidean import EuclideanKernel, MaternKernel, RBFKernel
 from .riemann import RiemannKernel, RiemannMaternKernel
 
-__all__ = ["RiemannKernel", "RiemannMaternKernel"]
+__all__ = [
+    "EuclideanKernel",
+    "MaternKernel",
+    "RBFKernel",
+    "RiemannKernel",
+    "RiemannMaternKernel",
+]

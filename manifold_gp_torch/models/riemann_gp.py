@@ -1,13 +1,19 @@
 """Implicit-manifold GP regression model (port of
-``manifold_gp_tpu.models.riemann_gp``, supervised).
+``manifold_gp_tpu.models.riemann_gp``, single device).
 
-Training: ``precision_matvec`` composes Scale -> Noise over the kernel's
-Matérn precision (including the ``inverse_scale`` asymmetry documented in
-``ops.matern``), ``mll_loss`` is the precision-form negative log marginal
-likelihood. Every method is a function of a flat params dict of tensors;
-gradients come from autograd with the solver backwards of ``ops.cg`` /
-``ops.slq``. Randomness (SLQ probes, one-hot indices) is passed in or drawn
-from an explicit ``torch.Generator``.
+Training: ``precision_matvec`` composes Schur (semisupervised) -> Scale ->
+Noise over the kernel's Matérn precision (including the ``inverse_scale``
+asymmetry documented in ``ops.matern``), ``mll_loss`` is the precision-form
+negative log marginal likelihood. Every method is a function of a flat
+params dict of tensors; gradients come from autograd with the solver
+backwards of ``ops.cg`` / ``ops.slq``. Randomness (SLQ probes, one-hot
+indices) is passed in or drawn from an explicit ``torch.Generator``.
+
+Semisupervised (``labeled``, a boolean mask over the kernel's nodes): the
+graph covers every node, the labels only the masked ones. The loss runs on
+the labeled block's Schur complement of the unpermuted precision, one inner
+CG on the unlabeled block per apply (``ops.matern.make_schur_matvec``), and
+the posterior reaches the labeled points through Nyström features.
 
 Prediction uses the exact feature-space (Woodbury) posterior: with
 K = s Z Z' + sigma^2 I and C = (sigma^2/s) I_m + Z'Z,
@@ -17,10 +23,10 @@ K = s Z Z' + sigma^2 I and C = (sigma^2/s) I_m + Z'Z,
 
 LOVE (``eval(love_rank=...)``) swaps the exact covariance for a rank-r
 Lanczos root-inverse of the train covariance; ``posterior_samples`` draws
-pathwise joint samples in feature space.
-
-Not ported yet: the semisupervised ``labeled`` mask, the blend with a
-vanilla GP (``base_model``).
+pathwise joint samples in feature space. ``posterior(base_model=...)``
+blends in a vanilla GP away from the manifold (base_scale = 1 - bump of
+the distance to the nearest graph node): means add, covariances add
+outer(base_scale)-weighted, stddevs add scaled.
 """
 
 from __future__ import annotations
@@ -29,15 +35,18 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, InferenceConfig
 from ..ops import engine
 from ..ops.bump import bump_function
 from ..ops.matern import (
+    labeled_split,
     make_jacobi_precond,
     make_noisy_matvec,
     make_scaled_matvec,
+    make_schur_matvec,
     noisy_scaled_diag,
 )
 from ..ops.operator import Operator
@@ -64,17 +73,16 @@ class RiemannGP:
         use_outputscale: bool = True,
         cfg: InferenceConfig = DEFAULT_CONFIG,
     ):
-        if labeled is not None:
-            raise NotImplementedError(
-                "RiemannGP(labeled=...): the semisupervised Schur path is not "
-                "ported yet (ROADMAP queue 1, 'Semisupervised')"
-            )
         self.device = kernel.device
         self.train_x = torch.as_tensor(train_x, dtype=torch.float32).to(self.device)
         self.train_y = torch.as_tensor(train_y, dtype=torch.float32).to(self.device)
         self.kernel = kernel
         self.cfg = cfg
         self.use_outputscale = use_outputscale
+        self.labeled = None if labeled is None else np.asarray(labeled, bool)
+        if self.labeled is not None:
+            self._labeled_idx, self._unlabeled_idx = labeled_split(self.labeled)
+            self._labeled_rows = torch.as_tensor(self._labeled_idx, device=self.device)
         self._noise_decl = ConstrainedParam(
             "noise",
             noise_constraint if noise_constraint is not None else GreaterThan(1e-8),
@@ -121,14 +129,27 @@ class RiemannGP:
 
     # -- precision operator stack -----------------------------------------
     def precision_matvec(self, params, noise: bool = True, coeffs=None) -> Operator:
-        """Compose Scale -> Noise over the kernel's precision.
+        """Compose Schur (semisupervised) -> Scale -> Noise over the
+        kernel's precision.
 
-        On the block-sparse path the whole composition runs in padded-RCM
-        space: the scalar Scale/Noise wrappers commute with the permutation,
-        so one permute_in/out pair at the boundary replaces per-Laplacian-
-        matvec row gathers (a noisy nu=2 apply does 6 of them)."""
-        permuted = self.kernel.block_layout is not None
+        Supervised, on the block-sparse path, the whole composition runs in
+        padded-RCM space: the scalar Scale/Noise wrappers commute with the
+        permutation, so one permute_in/out pair at the boundary replaces
+        per-Laplacian-matvec row gathers (a noisy nu=2 apply does 6 of
+        them). The Schur complement indexes node rows, so a labeled model
+        keeps the base operator's own permute in/out per apply."""
+        permuted = self.labeled is None and self.kernel.block_layout is not None
         mv = self.kernel.precision_matvec(params, coeffs=coeffs, permuted_io=permuted)
+        if self.labeled is not None:
+            mv = make_schur_matvec(
+                mv, self._labeled_idx, self._unlabeled_idx, self.kernel.graph.num_nodes,
+                cg_tol=self.cfg.cg_tolerance, cg_max_iter=self.cfg.cg_max_iter,
+                precond_diag=(
+                    self.kernel.precision_diag(params, coeffs=coeffs)
+                    if self.cfg.cg_precondition
+                    else None
+                ),
+            )
         if self.use_outputscale:
             mv = make_scaled_matvec(mv, self.outputscale(params))
         if noise:
@@ -152,7 +173,8 @@ class RiemannGP:
         """Preconditioner OBJECT (``ops.pivchol`` protocol: apply / sample /
         logdet) for the composed precision operator, per cfg.precond_type:
 
-          * "jacobi": diag(Q) pushed through the Scale/Noise wrappers;
+          * "jacobi": diag(Q) pushed through the Scale/Noise wrappers (for
+            the Schur complement: its labeled rows, an approximation);
           * "pivchol": rank-``cfg.precond_rank`` partial pivoted Cholesky of
             the composed operator itself (``matvec``; without it, Jacobi, as
             in the reference).
@@ -166,8 +188,11 @@ class RiemannGP:
         from ..ops.pivchol import DiagPrecond, make_pivchol_precond
 
         with torch.no_grad():
+            d = self.kernel.precision_diag(params, coeffs=coeffs)
+            if self.labeled is not None:
+                d = d.index_select(0, self._labeled_rows)
             d = noisy_scaled_diag(
-                self.kernel.precision_diag(params, coeffs=coeffs),
+                d,
                 scale=self.outputscale(params) if self.use_outputscale else None,
                 noise=self.noise(params) if noise else None,
             )
@@ -209,7 +234,12 @@ class RiemannGP:
         noise eigenvalue uses sigma^2 * mean(deg) as the effective scale).
         The bulk scale tau is the composed value at the geometric mean of
         the undeflated spectrum window [lambda_m, Gershgorin bound].
+
+        Supervised only: the Schur complement's eigenvectors are not L's.
         """
+        if self.labeled is not None:
+            raise ValueError("deflation_precond needs the unmarginalized stack: "
+                             "the model is semisupervised")
         from ..ops.laplacian import gershgorin_bound
         from ..ops.pivchol import ConjugatedPrecond, make_deflation_precond
 
@@ -297,7 +327,8 @@ class RiemannGP:
 
     def average_variance(self, params, num_rand_vec: int = 100,
                          generator: Optional[torch.Generator] = None, idx=None):
-        """Mean diagonal of the *unscaled* kernel-precision inverse, over all
+        """Mean diagonal of the *unscaled* kernel-precision inverse (the
+        full precision over every graph node, labeled or not), over all
         nodes when num_rand_vec >= N, else over ``num_rand_vec`` nodes
         (``idx``, or drawn from ``generator``)."""
         mv = self.kernel.precision_matvec(params)
@@ -386,13 +417,9 @@ class RiemannGP:
     @torch.no_grad()
     def posterior(self, params, x, noisy_posterior: bool = False, base_model=None,
                   base_params=None, is_train: Optional[bool] = None) -> Posterior:
-        """Geometric posterior at ``x``; ``is_train=True`` forces the
-        in-sample feature path."""
-        if base_model is not None:
-            raise NotImplementedError(
-                "RiemannGP.posterior(base_model=...): the vanilla-GP blend is "
-                "not ported yet (ROADMAP queue 1, 'Vanilla baseline')"
-            )
+        """Geometric posterior at ``x``, blended with ``base_model`` (a
+        vanilla GP, evaluated at ``base_params``) away from the manifold
+        when given; ``is_train=True`` forces the in-sample feature path."""
         cache = self._cache
         zs = self.kernel.features(params, cache["basis"], x, is_train=is_train)
         mean = cache["mu"] + (zs @ cache["w"][:, None])[:, 0]
@@ -411,6 +438,12 @@ class RiemannGP:
                 covar.shape[0], dtype=covar.dtype, device=covar.device
             )
         stddev = torch.sqrt(torch.clamp(torch.diagonal(covar), min=0.0))
+        if base_model is not None:
+            base_post = base_model.posterior(base_params, x, noisy_posterior)
+            base_scale = 1.0 - self.modulation(params, x)
+            mean = mean + base_scale * base_post.mean
+            covar = covar + torch.outer(base_scale, base_scale) * base_post.covar
+            stddev = stddev + base_scale * base_post.stddev
         return Posterior(mean=mean, covar=covar, stddev=stddev)
 
     @torch.no_grad()

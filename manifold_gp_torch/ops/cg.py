@@ -18,6 +18,12 @@ for their cotangents.
 
 The stop test reads one boolean from the device per iteration (a host
 synchronisation each), so that iteration counts equal the JAX package's.
+
+``iteration_log``: set it to a list and every ``cg_raw`` call appends
+(label, rows, columns, iterations) to it (None, the default, records
+nothing). ``label`` is the caller's ``log_label``, None unless given: the
+Schur operator's inner solves (``ops.matern.make_schur_matvec``) pass
+"schur_inner", forward and adjoint alike.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from typing import Callable, Optional
 import torch
 
 from .operator import as_operator
+
+iteration_log: Optional[list] = None
 
 
 @torch.no_grad()
@@ -38,6 +46,7 @@ def cg_raw(
     x0=None,
     precond: Optional[Callable] = None,
     with_info: bool = False,
+    log_label: Optional[str] = None,
 ):
     """Plain batched (P)CG (no gradient). b: [N] or [N, B].
 
@@ -49,6 +58,7 @@ def cg_raw(
     termination still measures the true residual, so tolerances mean the
     same thing with and without preconditioning.
     ``with_info``: also return the iteration count (a Python int).
+    ``log_label``: the label of this solve's ``iteration_log`` entry.
     """
     squeeze = b.dim() == 1
     if squeeze:
@@ -85,6 +95,8 @@ def cg_raw(
         rs = torch.where(active, rs_new, rs)
         rz = torch.where(active, rz_new, rz)
         iters += 1
+    if iteration_log is not None:
+        iteration_log.append((log_label, b.shape[0], b.shape[1], iters))
     x_out = x[:, 0] if squeeze else x
     return (x_out, iters) if with_info else x_out
 
@@ -108,9 +120,11 @@ def consts_cotangents(fn, x, consts, needs, weight):
 
 class _CGSolve(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, fn, precond, tol, max_iter, b, *consts):
-        x = cg_raw(lambda v: fn(v, *consts), b, tol, max_iter, precond=precond)
+    def forward(ctx, fn, precond, tol, max_iter, log_label, b, *consts):
+        x = cg_raw(lambda v: fn(v, *consts), b, tol, max_iter, precond=precond,
+                   log_label=log_label)
         ctx.fn, ctx.precond, ctx.tol, ctx.max_iter = fn, precond, tol, max_iter
+        ctx.log_label = log_label
         ctx.save_for_backward(x, *consts)
         return x
 
@@ -120,9 +134,9 @@ class _CGSolve(torch.autograd.Function):
         fn = ctx.fn
         # A is symmetric for every operator in this framework.
         lam = cg_raw(lambda v: fn(v, *consts), g.contiguous(), ctx.tol, ctx.max_iter,
-                     precond=ctx.precond)
-        bars = consts_cotangents(fn, x, consts, ctx.needs_input_grad[5:], -lam)
-        return (None, None, None, None, lam if ctx.needs_input_grad[4] else None, *bars)
+                     precond=ctx.precond, log_label=ctx.log_label)
+        bars = consts_cotangents(fn, x, consts, ctx.needs_input_grad[6:], -lam)
+        return (None, None, None, None, None, lam if ctx.needs_input_grad[5] else None, *bars)
 
 
 def cg_solve(
@@ -131,6 +145,7 @@ def cg_solve(
     tol: float = 1e-2,
     max_iter: int = 1000,
     precond: Optional[Callable] = None,
+    log_label: Optional[str] = None,
 ):
     """Solve A x = b with (P)CG; differentiable w.r.t. ``b`` and the tensors
     of ``matvec`` (an ``Operator``; a bare callable gets gradients for ``b``
@@ -138,7 +153,8 @@ def cg_solve(
 
     ``matvec`` must be a symmetric positive-definite linear map
     [N, B] -> [N, B] (or [N] -> [N]). ``precond`` is an optional M^{-1}
-    matvec used in both the forward and the adjoint solve.
+    matvec used in both the forward and the adjoint solve; ``log_label``
+    labels both solves' ``iteration_log`` entries.
     """
     op = as_operator(matvec)
-    return _CGSolve.apply(op.fn, precond, float(tol), int(max_iter), b, *op.consts)
+    return _CGSolve.apply(op.fn, precond, float(tol), int(max_iter), log_label, b, *op.consts)

@@ -36,8 +36,9 @@ below a size budget" branch: the device alone picks kernel or plain version.
 
 ``launch_count`` counts launches of the forward kernel (and
 ``launch_count_by_batch`` them by batch width) and ``bwd_launch_count``
-those of K3 (each incremented only where its kernel is launched), so a run
-can show that its main path went through the kernels.
+those of K3 (and ``bwd_launch_count_by_batch``), each incremented only
+where its kernel is launched, so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -55,10 +56,11 @@ import torch
 from .block_sparse import BLOCK, BlockLayout, check_block_cols, permute_in, permute_out
 
 # Launches of the forward kernel / of K3 since the last reset (set to 0 to
-# reset); the forward kernel's also by batch width (clear() to reset).
+# reset); also by batch width (clear() to reset).
 launch_count = 0
 bwd_launch_count = 0
 launch_count_by_batch: dict = {}
+bwd_launch_count_by_batch: dict = {}
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = (_CSRC / "block_ell_spmv.cu", _CSRC / "block_ell_bwd_blocks.cu",
@@ -386,6 +388,7 @@ def bwd_blocks_cuda(bc_flat, g, pv, *, s_max: int, out_dtype=torch.float32):
     if err != 0:
         raise RuntimeError(f"block_ell_bwd_blocks: launch failed with cudaError {err}")
     bwd_launch_count += 1
+    bwd_launch_count_by_batch[batch] = bwd_launch_count_by_batch.get(batch, 0) + 1
     return out
 
 

@@ -16,19 +16,23 @@
   * Noise wrapper: truncated Neumann series
     (K + s^2 I)^{-1} ~= Q - s^2 Q^2 + s^4 Q^3, evaluated as nested matvecs
     Q(v - s^2 Q(v - s^2 Q v)).
+  * Schur complement (semisupervised): the labeled block's effective
+    precision Q_ll - Q_lu Q_uu^{-1} Q_ul, each apply an inner CG on the
+    unlabeled block.
 
 Each factory here returns an ``ops.operator.Operator``: the matvec [n, B] ->
 [n, B] together with the tensors it depends on, which the solvers of
 ``ops.cg`` and ``ops.slq`` need to return their gradients.
 
-Not ported yet: the semisupervised Schur complement (``make_schur_matvec``,
-``make_schur_matvec_masked``, ``labeled_split``).
+Not ported yet: the masked (row-sharded) Schur complement
+``make_schur_matvec_masked`` of the multi-GPU path.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .block_sparse import BlockLayout
@@ -288,20 +292,67 @@ def make_noisy_matvec(matvec, noise) -> Operator:
     return Operator(mv, (*op.consts, noise))
 
 
-def _semisupervised(name: str):
-    raise NotImplementedError(
-        f"{name}: the semisupervised Schur complement is not ported yet "
-        "(ROADMAP queue 1, 'Semisupervised')"
-    )
+def make_schur_matvec(
+    base_matvec,
+    labeled_idx,
+    unlabeled_idx,
+    n: int,
+    cg_tol: float = 1e-2,
+    cg_max_iter: int = 1000,
+    precond_diag: Optional[torch.Tensor] = None,
+) -> Operator:
+    """Effective labeled-block precision S = Q_ll - Q_lu Q_uu^{-1} Q_ul via
+    an inner CG on the unlabeled block. ``labeled_idx`` / ``unlabeled_idx``
+    are index arrays (``labeled_split``), turned into device index tensors
+    once here. ``precond_diag``: optional [n] diagonal of the base operator;
+    the inner CG then runs Jacobi-preconditioned on its unlabeled
+    restriction (detached: a preconditioner gets no gradient).
 
+    The result shares the base operator's ``consts``; its ``fn`` builds the
+    inner operator over the tensors it is handed, so the inner solve's
+    backward returns their cotangents (what ``jax.closure_convert`` does for
+    the JAX package's nested ``cg_solve``). An inner operator that closed
+    over the tensors instead would drop the gradient through the solve.
+    """
+    from .cg import cg_solve
 
-def make_schur_matvec(*args, **kwargs):
-    _semisupervised("make_schur_matvec")
+    base = as_operator(base_matvec)
+    if precond_diag is not None:
+        device = precond_diag.device
+    else:
+        device = base.consts[0].device if base.consts else torch.device("cpu")
+    li = torch.as_tensor(np.asarray(labeled_idx), dtype=torch.int64, device=device)
+    ui = torch.as_tensor(np.asarray(unlabeled_idx), dtype=torch.int64, device=device)
+    inner_precond = None
+    if precond_diag is not None:
+        inner_precond = make_jacobi_precond(precond_diag.detach().index_select(0, ui))
+
+    def embed(idx, u):
+        return u.new_zeros((n, u.shape[1])).index_copy(0, idx, u)
+
+    def inner_fn(u, *consts):
+        return base.fn(embed(ui, u), *consts).index_select(0, ui)
+
+    def fn(v, *consts):
+        squeeze = v.dim() == 1
+        vv = v[:, None] if squeeze else v
+        t = base.fn(embed(li, vv), *consts)
+        sol = cg_solve(Operator(inner_fn, consts), t.index_select(0, ui), tol=cg_tol,
+                       max_iter=cg_max_iter, precond=inner_precond, log_label="schur_inner")
+        out = t.index_select(0, li) - base.fn(embed(ui, sol), *consts).index_select(0, li)
+        return out[:, 0] if squeeze else out
+
+    return Operator(fn, base.consts)
 
 
 def make_schur_matvec_masked(*args, **kwargs):
-    _semisupervised("make_schur_matvec_masked")
+    raise NotImplementedError(
+        "make_schur_matvec_masked: the row-sharded Schur complement belongs to "
+        "the multi-GPU path, not ported yet (ROADMAP queue 1, 'Multi-GPU, last')"
+    )
 
 
 def labeled_split(labeled_mask):
-    _semisupervised("labeled_split")
+    """Boolean mask [N] -> (labeled_idx, unlabeled_idx) numpy index arrays."""
+    mask = np.asarray(labeled_mask, bool)
+    return np.flatnonzero(mask), np.flatnonzero(~mask)

@@ -62,16 +62,21 @@ def test_model(model, params, test_x, test_y, noisy_test: bool = False,
                probes: Optional[torch.Tensor] = None):
     """Returns (rmse, nll) floats.
 
+    ``base_model`` / ``base_params``: a vanilla GP to blend in away from the
+    manifold (``RiemannGP.posterior``); it is evaluated here too.
     ``metric``: "exact" (dense Cholesky NLL, the default) or "reference"
     (the reference's stochastic metric, ``gaussian_nll_stochastic``, at its
-    defaults; needs ``generator`` or ``probes``). The vanilla blend
-    (``base_model``) is not ported yet."""
-    if base_model is not None:
-        raise NotImplementedError("test_model(base_model=...): not ported yet")
+    defaults; needs ``generator`` or ``probes``)."""
     if metric == "reference" and generator is None and probes is None:
         raise ValueError("the reference metric is stochastic: pass a generator or probes")
     model.eval(params)
-    post = model.posterior(params, test_x, noisy_posterior=noisy_test)
+    if base_model is not None:
+        base_model.eval(base_params)
+        post = model.posterior(params, test_x, noisy_posterior=noisy_test,
+                               base_model=base_model, base_params=base_params)
+    else:
+        # a VanillaGP's posterior takes no base model (as in the JAX package)
+        post = model.posterior(params, test_x, noisy_posterior=noisy_test)
     test_y = torch.as_tensor(test_y, dtype=torch.float32).to(post.mean.device)
     error = test_y - post.mean
     rmse = torch.sqrt(torch.mean(error * error))

@@ -12,13 +12,14 @@ step and one scheduler step each. The parameter tensors keep their identity
 through the run (the optimizer holds them): the re-normalization writes the
 new raw outputscale in place.
 
+``vanilla_train``: the same loop on a vanilla GP's exact marginal
+likelihood, with no outputscale normalization.
+
 Randomness: the SLQ probes of epoch e come from ``probes_fn(e)`` when given,
 else from a ``torch.Generator`` seeded with ``seed``; the one-hot indices of
 an average-variance estimate from ``idx_fn(epoch)``, else from a second
 generator seeded with ``seed + 7919``. Both generators' states are
 checkpointed, so a resumed run replays the uninterrupted one.
-
-Not ported yet: ``vanilla_train``.
 """
 
 from __future__ import annotations
@@ -271,11 +272,7 @@ def manifold_informed_train(
         set_outputscale(p, 1.0 / avg_var(p, epoch))
 
     def loss_fn(p, epoch, aux):
-        probes = None if probes_fn is None else probes_fn(epoch)
-        if probes is not None and not isinstance(probes, torch.Tensor):
-            probes = torch.tensor(np.asarray(probes, np.float32))
-        if probes is not None:
-            probes = probes.to(device=device, dtype=torch.float32)
+        probes = None if probes_fn is None else _as_probes(probes_fn(epoch), device)
         return model.mll_loss(p, generator=generator, precond_override=aux, probes=probes)
 
     params, loss_val, history = _train_loop(
@@ -306,8 +303,50 @@ def manifold_informed_train(
     return params, loss_val, history
 
 
-def vanilla_train(*args, **kwargs):
-    raise NotImplementedError(
-        "vanilla_train: the vanilla GP baseline is not ported yet "
-        "(ROADMAP queue 1, 'Vanilla baseline')"
+def _as_probes(probes, device):
+    """``probes_fn``'s return value (a tensor, an array, or a pair of
+    either for the mBCG log-det) as f32 tensors on ``device``."""
+    if probes is None:
+        return None
+    if isinstance(probes, tuple):
+        return tuple(_as_probes(p, device) for p in probes)
+    if not isinstance(probes, torch.Tensor):
+        probes = torch.tensor(np.asarray(probes, np.float32))
+    return probes.to(device=device, dtype=torch.float32)
+
+
+def vanilla_train(
+    model,
+    params,
+    lr: float = 1e-1,
+    weight_decay: float = 0.0,
+    max_iter: int = 100,
+    tolerance: float = 1e-2,
+    scheduler: Optional[ReduceLROnPlateau] = None,
+    verbose: bool = False,
+    seed: int = 0,
+    metrics=None,
+    checkpoint_path=None,
+    checkpoint_every=None,
+    resume: bool = True,
+    debug: bool = False,
+    probes_fn: Optional[Callable] = None,
+):
+    """Exact-MLL training of a ``models.VanillaGP`` (Adam, plateau
+    scheduler, the same loop as ``manifold_informed_train``). Returns
+    (params, final_loss, history); ``params`` is updated in place. Above
+    ``cfg.max_cholesky`` the BBMM loss draws its probes from a generator
+    seeded with ``seed``, or takes epoch e's pair (zm, zr) from
+    ``probes_fn(e)``."""
+    device = model.device
+    generator = None if probes_fn is not None else torch.Generator(device=device).manual_seed(seed)
+
+    def loss_fn(p, epoch, aux):
+        probes = None if probes_fn is None else _as_probes(probes_fn(epoch), device)
+        return model.mll_loss(p, generator=generator, probes=probes)
+
+    return _train_loop(
+        model, params, loss_fn, lr, weight_decay, max_iter, tolerance, scheduler, verbose,
+        generator, metrics=metrics, checkpoint_path=checkpoint_path,
+        checkpoint_every=checkpoint_every, resume=resume, debug=debug,
     )

@@ -209,8 +209,11 @@ def test_edge_mode_panels_carry_no_gradient_and_bad_inputs_raise(graphs):
                                           grad_space="edge")
     with pytest.raises(ValueError, match="normalization"):
         tmat.make_matern_precision_matvec(tg, tc, 2, LS, "other", block=(tl, None))
-    for fn in (tmat.make_schur_matvec, tmat.make_schur_matvec_masked):
-        with pytest.raises(NotImplementedError, match="Semisupervised"):
-            fn(op, None, None, 1)
-    with pytest.raises(NotImplementedError, match="Semisupervised"):
-        tmat.labeled_split(np.ones(3, bool))
+    # the Schur complement composes over the edge-mode operator too; only
+    # its row-sharded (masked) form waits for the multi-GPU path
+    li, ui = tmat.labeled_split(np.arange(tg.num_nodes) % 4 == 0)
+    schur = tmat.make_schur_matvec(op, li, ui, tg.num_nodes)
+    assert schur.consts == op.consts
+    assert torch.all(torch.isfinite(schur(torch.ones(len(li), 2))))
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        tmat.make_schur_matvec_masked(op, None, None)

@@ -6,8 +6,9 @@ Jacobi cuts CG iterations where the density-corrected degree spreads; the
 implicit CG gradient does not depend on the preconditioner; and no
 preconditioner the model builds (Jacobi or pivoted Cholesky) moves
 ``mll_loss`` or its gradients, only the iteration paths of its solves. The
-reference's model case is semisupervised (not ported yet); this twin holds
-the supervised loss to the same bounds, and adds the pivoted-Cholesky case.
+reference's model case is semisupervised; its twin is in
+tests/test_torch_schur.py. This one holds the supervised loss to the same
+bounds, and adds the pivoted-Cholesky case.
 """
 
 import numpy as np

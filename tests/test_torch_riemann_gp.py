@@ -133,12 +133,18 @@ def test_params_roundtrip_and_constraints():
 
 
 def test_unported_paths_raise():
+    """Once the paths this slice lacked; the semisupervised one is ported
+    now, so the test holds that it builds and gives a finite loss."""
     x_tr, y_tr, x_te, _ = _torus_problem(600, 50)
     cfg = tmgp.InferenceConfig(eigh_max_size=0, dense_operator_max_size=0, use_dia=False)
     kernel = tmgp.RiemannMaternKernel(nu=2, x=x_tr, nearest_neighbors=8, num_modes=10,
                                       cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="semisupervised"):
-        tmgp.RiemannGP(x_tr, y_tr, kernel, labeled=np.ones(len(y_tr), bool))
+    # the semisupervised path is ported: a labeled model builds on this
+    # kernel (the mask covers the graph's nodes) and its loss is finite
+    labeled = np.arange(len(y_tr)) % 5 == 0
+    model = tmgp.RiemannGP(x_tr[labeled], y_tr[labeled], kernel, labeled=labeled, cfg=cfg)
+    loss = model.mll_loss(model.init_params(**HYPERS))
+    assert model.num_data == int(labeled.sum()) and np.isfinite(float(loss))
 
 
 def _subspace_distance(a, b):

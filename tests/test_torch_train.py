@@ -150,8 +150,10 @@ def test_mll_loss_draws_from_a_generator_and_rejects_unported_options():
     assert np.isfinite(float(mbcg.mll_loss(p, generator=torch.Generator().manual_seed(4))))
     _, none = _models(300, max_cholesky=0, precond_type="none")
     assert none.precision_precond(p) is None and none.build_precond(p) is None
-    with pytest.raises(NotImplementedError, match="Vanilla"):
-        vanilla_train(tm, p)
+    # vanilla_train is ported: a few epochs of a vanilla GP on the same data
+    vm = T.VanillaGP(tm.train_x, tm.train_y, T.RBFKernel(device="cpu"))
+    _, vloss, vhist = vanilla_train(vm, vm.init_params(noise=1e-2, lengthscale=0.5), max_iter=3)
+    assert len(vhist) == 4 and np.isfinite(vloss) and vhist[-1] < vhist[0]
 
 
 def test_average_variance_matches_jax_with_shared_indices(monkeypatch):
