@@ -50,8 +50,8 @@ Phases (any failure exits non-zero before the result line is printed):
      panels) and (4a) at B = 1, 48 and 100 with bf16 panels (the widths and
      panel type of one training gradient; 100 is average_variance's) and
      x3 panels at B = 48, and f32 panels at LOBPCG's B = 100 and 300,
-     through cuda_spmv.block_matvec, each record with its batch tile; (4b) the panel-cotangent kernel at B = 1 and B = 48
-     through cuda_spmv.block_bwd_blocks, each record with its batch class,
+     through cuda_spmv.block_matvec, each record with its batch tile; (4b) the panel-cotangent kernel at B = 1, 48 and 100
+     (three 32-column chunks and a 4-column tail) through cuda_spmv.block_bwd_blocks, each record with its batch class,
      and the edge path's gather after it (flat[edge_flat], flat[diag_flat]);
   5. the 16,384-point serve held to the JAX package's numbers
      (examples_torch/serve_pins.json), and the port's lobpcg_smallest on
@@ -127,6 +127,40 @@ Phases (any failure exits non-zero before the result line is printed):
      pivoted Cholesky picks different pivots among f32 ties, so there the
      loss is held to the dense f64 loss within the largest deviation of
      JAX's estimate over 32 probe seeds, and the port's pivots are printed.
+  11. srmnist10k-semisup (examples_torch/run_rmnist.py semisupervised): the
+     SRMNIST digits surrogate (10,010 images in R^784, 1,001 labeled by the
+     notebooks' CPU seed-1337 split), built into a temporary cache
+     directory and fingerprinted against examples_torch/dataset_pins.json
+     (a mismatch, e.g. from another scipy, is printed, not failed); k = 50
+     (block-ELL, S = 3), 100 modes, the notebook's 100 epochs on the Schur
+     complement, the vanilla Matern-2.5 GP (BBMM), the hybrid test_model;
+     launch counts reset just before and read just after; requires training
+     forward launches at B = 64 (SLQ probes), 100 (average_variance) and 1,
+     K3 launches at B = 64 and 1, finite results and the surrogate pins'
+     rule (RMSE within 0.05, NLL within 0.15); prints the phase seconds,
+     the median epoch, inner CG iterations per Schur apply, the training's
+     peak memory, the LOBPCG basis seconds and one traced gradient's idle
+     share; then holds the forward kernel (B = 1, 64, 100, 300) and K3
+     (f32 out, B = 1, 64, 100) to their plain versions at SRMNIST's layout;
+  11a. SRMNIST supervised (100 labeled, dense, 500 epochs): finite results,
+     the pins' rule, and no kernel launch;
+  11b. the 1-D dumbbell at the reference's pretrained hyperparameters
+     (examples_torch/eval_pretrained.py, dense, no kernel launch): on JAX's
+     kNN graph held to dataset_pins.json (vanilla 1e-3, IMGP 1e-2: f32's
+     rounding at noise / outputscale = 6e-5); beneath it, the f64 witness
+     (host f64 basis, JAX's kNN choice, the posterior computed in f64 from
+     the card's features) within 1e-5 of JAX's, and the port's own
+     posterior code run in f64 on those features within 1e-7 of it; on
+     the card's own search, printed, with the check
+     that its edges differ from JAX's only in tied neighbours; the
+     reference stochastic metric's mean +/- sd;
+  12. dragon4k (examples_torch/run_2d.py): 4,882 training vertices, k = 10,
+     nu = 1 (block-ELL, S = 5), 100 epochs and the vanilla RBF GP; requires
+     forward launches at B = 64 and 1, K3 launches, finite results and IMGP
+     RMSE < 0.9 (tests/test_dragon_smoke.py's bound); prints RMSE/NLL
+     beside JAX's recorded 0.0434 / -1.6139; then holds the forward kernel
+     (B = 1, 64, 100) and K3 (f32 out, B = 1, 64) to their plain versions
+     at the dragon's layout.
 Then one JSON line with the kernel table, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -168,6 +202,21 @@ ALIGN_MODES = 20  # on the lowest 20 modes (tests/test_eval_basis_10k.py's block
                   # the top of a 100-wide block still rotates after 200
                   # iterations (an H100 read 0.86 and 0.52 at modes 93, 94;
                   # JAX's own CPU run one mode at 0.943), so it is recorded
+# the 1-D pretrained evaluation vs JAX's numbers on JAX's kNN graph (relative).
+# At noise / outputscale = 6e-5 (feature-space system cond 7.3e4, posterior
+# covariance cond 1.8e6) an f32 evaluation lands ~1e-3 from the exact one:
+# an H100's NLL 6.8e-3, JAX's 1.4e-3, and the two packages' f32 bases move
+# the exact metrics 2.4e-4 more, 8.4e-3 in all: IMGP is held at 1e-2. The
+# layers beneath are held tightly: the posterior computed in f64 from the
+# card's features (one basis, one kNN choice) to JAX's at WITNESS_RTOL, and
+# the port's own posterior code run in f64 on them at MODEL_F64_RTOL.
+PRETRAINED_RTOL = {"imgp_rmse": 1e-2, "imgp_nll": 1e-2, "imgp_nll_love": 1e-2,
+                   "vanilla_rmse": 1e-3, "vanilla_nll": 1e-3}
+WITNESS_RTOL = 1e-5  # f64 posterior from f32 features: an H100 read 2.3e-7
+MODEL_F64_RTOL = 1e-7  # the port's posterior code in f64: the CPU read 3.0e-9
+DRAGON_VANILLA_EPOCHS = 10  # of run_2d.py's 100: the vanilla BBMM baseline
+                            # takes 52 s at 100 and runs no kernel
+DRAGON_RMSE_MAX = 0.9  # tests/test_dragon_smoke.py's bound
 GAP_FRAC = 5e-3  # of the top oracle eigenvalue: a mode closer to a neighbour
                  # than this is inside a cluster and has no unique vector
 # K4's phase-2c widths: B = 1 (row template), up to 16 (row runs capped by
@@ -342,6 +391,38 @@ def compare_bwd(layout, g, pv, out_dtype, label, timing=None):
     if timing is not None:
         rec.update(timing(bc, g, pv, s, out_dtype))
     return rec
+
+
+def hold_at_layout(model, params, label, fwd_widths, bwd_widths, seed, dev):
+    """Both block-ELL kernels against their plain versions at a trained
+    model's own layout (f32 panels at its coefficients): the forward kernel
+    through both entry points at ``fwd_widths``, K3 with f32 output at
+    ``bwd_widths``. Run after a phase's counts are read: these launches are
+    not the main path's. Returns the records."""
+    import torch
+
+    from manifold_gp_torch.ops.block_sparse import BlockLayout, assemble, permute_in
+
+    layout = model.kernel.block_layout
+    if not isinstance(layout, BlockLayout):
+        fail(f"{label} took {type(layout).__name__}, not block-ELL")
+    with torch.no_grad():
+        coeffs = model.kernel.coeffs(params)
+        panels = assemble(layout, coeffs.diag, coeffs.triu)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    records = []
+    for batch in fwd_widths:
+        v = torch.randn((layout.num_nodes, batch), generator=gen, device=dev)
+        records.append(compare(layout, panels, permute_in(layout, v).contiguous(),
+                               f"{label} float32"))
+    for batch in bwd_widths:
+        v = torch.randn((layout.num_nodes, batch), generator=gen, device=dev)
+        gct = torch.randn((layout.num_padded, batch), generator=gen, device=dev)
+        records.append(compare_bwd(layout, gct, permute_in(layout, v).contiguous(),
+                                   torch.float32, f"{label} bwd float32"))
+    del panels, coeffs
+    torch.cuda.empty_cache()
+    return records
 
 
 def compare_dia(layout, band, pv, label):
@@ -581,6 +662,234 @@ def cloud_vs_arpack(dev):
     if len(held) < 3 or not rec["min_alignment"] > ALIGN_MIN:
         fail(f"10k basis eigenvectors miss the ARPACK oracle: {held}")
     return rec
+
+
+def reference_protocols(dev) -> dict:
+    """Phases 11, 11a, 11b and 12: the reference datasets and protocols
+    through the port's example scripts, each with its launch counts reset
+    just before and read just after. Returns their report entries and the
+    kernels line's launch counts of these paths (``forward``, ``bwd_blocks``:
+    entries of ``launches_by_path``; ``required``: counts that must be > 0)."""
+    import tempfile
+
+    import numpy as np
+    import scipy
+    import torch
+
+    from examples_torch import eval_pretrained, reference_protocol as rp
+    from examples_torch.profile_gradient import trace_gradient
+    from examples_torch.run_2d import run_experiment as run_dragon
+    from examples_torch.run_rmnist import check_pins as rmnist_check_pins
+    from examples_torch.run_rmnist import dataset_fingerprint
+    from examples_torch.run_rmnist import run_experiment as run_rmnist
+    from manifold_gp_torch.ops import cg as cg_ops
+    from manifold_gp_torch.ops.knn import knn_search
+    from manifold_gp_torch.utils import manifold_1D_dataset
+
+    report = {}
+
+    # -- phase 11: SRMNIST semisupervised at 10,010 points --------------------
+    print("== phase 11: srmnist10k-semisup (the notebook protocol, 100 epochs)")
+    dpins = json.loads((ROOT / "examples_torch" / "dataset_pins.json").read_text())
+    cg_ops.iteration_log = None
+    torch.cuda.empty_cache()
+    # one dataset build for 11 and 11a, in a directory of its own (the
+    # cache key ignores the build's size)
+    cache = tempfile.TemporaryDirectory()
+    handles = {}
+    rp.reset_launch_counts()
+    srm = run_rmnist("semisupervised", device=dev, handles=handles, cache_dir=cache.name)
+    srm_all = rp.launch_snapshot()
+    fp = dataset_fingerprint(*handles.pop("dataset"))
+    fp_pin = dpins["srmnist_surrogate"]
+    fp_match = all(fp[k] == fp_pin[k] for k in fp)
+    srm_fwd_by = srm["train_launches"]["forward_by_batch"]
+    srm_bwd_by = srm["train_launches"]["bwd_blocks_by_batch"]
+    smodel, sparams = handles["model"], handles["params"]
+    srm_profile = trace_gradient(smodel, sparams,
+                                 generator=torch.Generator(device=dev).manual_seed(5))
+    srm_failures, srm_src = rmnist_check_pins(srm, "semisupervised", srm["data"] == "mnist")
+    inner, outer = srm["inner_cg"], srm["outer_cg"]
+    print(f"  data {srm['data']}; fingerprint {'matches' if fp_match else 'DIFFERS from'} "
+          f"dataset_pins.json (built with scipy {fp_pin['scipy']}; this machine's scipy "
+          f"{scipy.__version__})")
+    print(f"  layout {srm['layout']} S={srm['max_blocks']} row blocks={srm['num_row_blocks']}; "
+          f"{srm['loss_evaluations']} loss evaluations in {srm['phase_s']['training']:.2f} s (median epoch "
+          f"{srm['epoch_s_median']:.4f} s, first {srm['epoch_s_first']:.3f} s); phases "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in srm["phase_s"].items()))
+    print(f"  training launches: forward {srm['train_launches']['forward']} by width "
+          f"{srm_fwd_by}, K3 {srm['train_launches']['bwd_blocks']} by width {srm_bwd_by}; "
+          f"eval forward by width {srm['eval_forward_launches_by_batch']}")
+    print(f"  inner CG per Schur apply: mean {inner.get('mean', 0):.3f}, max {inner.get('max', 0)} "
+          f"({inner['solves']} solves); outer CG: mean {outer.get('mean', 0):.3f}, max "
+          f"{outer.get('max', 0)} ({outer['solves']} solves); training peak "
+          f"{srm['train_peak_mem_bytes'] / 1e9:.3f} GB")
+    print(f"  IMGP RMSE {srm['rmse_manifold']:.6f} NLL {srm['nll_manifold']:.6f}; vanilla RMSE "
+          f"{srm['rmse_vanilla']:.6f} NLL {srm['nll_vanilla']:.6f}; LOBPCG basis "
+          f"{srm['phase_s']['basis']:.3f} s, vanilla {srm['phase_s']['vanilla']:.2f} s")
+    print(f"  one gradient at the trained point: wall {srm_profile['wall_ms']:.1f} ms, device "
+          f"{srm_profile['device_ms']:.1f} ms, idle {srm_profile['device_idle_share']:.3f}")
+    print(f"  check-pins ({srm_src}): {'OK' if not srm_failures else srm_failures}")
+    srm.update(fingerprint=fp, fingerprint_matches=fp_match, scipy=scipy.__version__,
+               launches=srm_all, gradient_profile=srm_profile)
+    report["srmnist_semisup"] = srm
+    for key in ("imgp_loss", "rmse_manifold", "nll_manifold", "rmse_vanilla", "nll_vanilla"):
+        if not np.isfinite(srm[key]):
+            fail(f"SRMNIST semisupervised {key} is not finite: {srm[key]}")
+    # the Schur path's widths: SLQ probes (cfg.num_probes = 64) and the
+    # quadratic term (1) with their backwards, average_variance's 100
+    for width in ("64", "100", "1"):
+        if srm_fwd_by.get(width, 0) <= 0:
+            fail(f"SRMNIST training made no forward launch at B = {width}: {srm_fwd_by}")
+    for width in ("64", "1"):
+        if srm_bwd_by.get(width, 0) <= 0:
+            fail(f"SRMNIST training made no K3 launch at B = {width}: {srm_bwd_by}")
+    if srm_failures:
+        fail(f"SRMNIST semisupervised check-pins: {srm_failures}")
+    # both kernels against their plain versions at SRMNIST's layout
+    srm["kernel_vs_plain"] = hold_at_layout(
+        smodel, sparams, "srmnist", (1, 64, LOBPCG_MODES, 3 * LOBPCG_MODES), (1, 64, 100), 11, dev)
+    del handles, smodel, sparams
+
+    print("== phase 11a: SRMNIST supervised (100 labeled, dense, 500 epochs)")
+    rp.reset_launch_counts()
+    srm_sup = run_rmnist("supervised", device=dev, cache_dir=cache.name)
+    srm_sup_launches = rp.launch_snapshot()
+    cache.cleanup()
+    sup_failures, sup_src = rmnist_check_pins(srm_sup, "supervised", srm_sup["data"] == "mnist")
+    print(f"  supervised: {srm_sup['loss_evaluations']} loss evaluations, median epoch "
+          f"{srm_sup['epoch_s_median']:.4f} s; IMGP RMSE {srm_sup['rmse_manifold']:.6f} NLL "
+          f"{srm_sup['nll_manifold']:.6f}; vanilla RMSE {srm_sup['rmse_vanilla']:.6f} NLL "
+          f"{srm_sup['nll_vanilla']:.6f}; phases "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in srm_sup["phase_s"].items()))
+    print(f"  supervised launches {srm_sup_launches}; check-pins ({sup_src}): "
+          f"{'OK' if not sup_failures else sup_failures}")
+    srm_sup["launches"] = srm_sup_launches
+    report["srmnist_sup"] = srm_sup
+    for key in ("imgp_loss", "rmse_manifold", "nll_manifold", "rmse_vanilla", "nll_vanilla"):
+        if not np.isfinite(srm_sup[key]):
+            fail(f"SRMNIST supervised {key} is not finite: {srm_sup[key]}")
+    if srm_sup_launches["forward"] or srm_sup_launches["bwd_blocks"] or srm_sup_launches["dia"]:
+        fail(f"the dense supervised SRMNIST launched a kernel: {srm_sup_launches}")
+    if sup_failures:
+        fail(f"SRMNIST supervised check-pins: {sup_failures}")
+
+    # -- phase 11b: the 1-D dumbbell at the reference's pretrained values -------
+    print("== phase 11b: dumbbell-pretrained vs the JAX pins (examples_torch/dataset_pins.json)")
+    ppins = dpins["dumbbell_pretrained"]
+    wpin = ppins["f64_witness"]
+    jax_idx = np.asarray(ppins["knn_idx"])
+    rp.reset_launch_counts()
+    shared = eval_pretrained.run_experiment(device=dev, knn_idx=jax_idx)
+    own = eval_pretrained.run_experiment(device=dev)
+    wh = {}
+    wf32 = eval_pretrained.run_experiment(device=dev, seeds=0, knn_idx=jax_idx,
+                                          eigensolver="host_f64", handles=wh)
+    with torch.no_grad():
+        witness = eval_pretrained.f64_witness(wh, jax_idx,
+                                              lambda a: torch.as_tensor(a, device=dev))
+    model_f64 = eval_pretrained.model_metrics_in_f64(wh, witness["z"])
+    pre_launches = rp.launch_snapshot()
+    del wh
+    x1, _, _ = manifold_1D_dataset()
+    x1t = torch.as_tensor(x1, device=dev)
+    ties = eval_pretrained.tie_only_difference(
+        x1, knn_search(x1t, x1t, 10, self_query=True)[1].cpu().numpy(), jax_idx)
+    pre_fail = []
+    for label, rec in (("JAX's graph", shared), ("own search", own)):
+        st = rec["imgp_nll_reference_metric"]
+        rels = {k: rec[k] / ppins[k] - 1.0 for k in PRETRAINED_RTOL}
+        print(f"  {label}: " + ", ".join(f"{k} {rec[k]:.6f} (pin {ppins[k]:.6f}, rel {rels[k]:+.2e})"
+                                         for k in PRETRAINED_RTOL))
+        print(f"    reference stochastic metric, {st['seeds']} seeds: {st['mean']:.4f} +/- "
+              f"{st['sd']:.4f} (reference notebook -3.2100; JAX "
+              f"{ppins['imgp_nll_reference_metric']['mean']:.4f} +/- "
+              f"{ppins['imgp_nll_reference_metric']['sd']:.4f})")
+        if label == "JAX's graph":
+            pre_fail += [f"{k} rel {rels[k]:.2e} > {tol}" for k, tol in PRETRAINED_RTOL.items()
+                         if not abs(rels[k]) <= tol]
+        if not all(np.isfinite(rec[k]) for k in PRETRAINED_RTOL):
+            pre_fail.append(f"{label}: non-finite metric")
+    w_rels = {k: witness[k] / wpin[k] - 1.0 for k in ("rmse", "nll", "cond")}
+    m_rels = {k: model_f64[k] / witness[k] - 1.0 for k in ("rmse", "nll")}
+    own_gap = {k: wf32[f"imgp_{k}"] / witness[k] - 1.0 for k in ("rmse", "nll")}
+    print(f"  f64 witness (host f64 basis, JAX's kNN): " + ", ".join(
+        f"{k} {witness[k]:.8g} (JAX {wpin[k]:.8g}, rel {w_rels[k]:+.2e})" for k in w_rels)
+        + f"; threshold {WITNESS_RTOL:.0e}")
+    print(f"  the port's posterior code in f64 on those features: " + ", ".join(
+        f"{k} rel {v:+.2e}" for k, v in m_rels.items()) + f" (threshold {MODEL_F64_RTOL:.0e})")
+    print(f"  f32 on that basis vs the f64 witness: card " + ", ".join(
+        f"{k} {v:+.2e}" for k, v in own_gap.items()) + "; JAX " + ", ".join(
+            f"{k} {wpin['f32']['imgp_' + k] / wpin[k] - 1.0:+.2e}" for k in own_gap))
+    print(f"  the card's kNN vs JAX's: {ties}")
+    report["dumbbell_pretrained"] = {
+        "jax_graph": shared, "own_graph": own, "knn_vs_jax": ties, "launches": pre_launches,
+        "f64_witness": {**{k: witness[k] for k in w_rels}, "rel_to_jax": w_rels,
+                        "model_f64": model_f64, "model_f64_rel": m_rels,
+                        "f32": {k: wf32[k] for k in ("imgp_rmse", "imgp_nll")},
+                        "f32_rel_to_witness": own_gap}}
+    pre_fail += [f"f64 witness {k} rel {v:.2e} > {WITNESS_RTOL}" for k, v in w_rels.items()
+                 if not abs(v) <= WITNESS_RTOL]
+    pre_fail += [f"the posterior code in f64: {k} rel {v:.2e} > {MODEL_F64_RTOL}"
+                 for k, v in m_rels.items() if not abs(v) <= MODEL_F64_RTOL]
+    if not ties["ties_only"]:
+        pre_fail.append(f"the card's kNN differs from JAX's beyond ties: {ties}")
+    if pre_launches["forward"] or pre_launches["bwd_blocks"] or pre_launches["dia"]:
+        pre_fail.append(f"the dense 1-D evaluation launched a kernel: {pre_launches}")
+    if pre_fail:
+        fail(f"dumbbell pretrained evaluation: {pre_fail}")
+
+    # -- phase 12: the dragon mesh, supervised on block-ELL ---------------------
+    print("== phase 12: dragon4k (run_2d.py, 100 epochs)")
+    torch.cuda.empty_cache()
+    handles = {}
+    rp.reset_launch_counts()
+    dragon = run_dragon(device=dev, vanilla_max_iter=DRAGON_VANILLA_EPOCHS, handles=handles)
+    dragon_all = rp.launch_snapshot()
+    drg_fwd_by = dragon["train_launches"]["forward_by_batch"]
+    drg_bwd_by = dragon["train_launches"]["bwd_blocks_by_batch"]
+    dragon["launches"] = dragon_all
+    report["dragon"] = dragon
+    print(f"  layout {dragon['layout']} S={dragon['max_blocks']} row blocks="
+          f"{dragon['num_row_blocks']}; {dragon['loss_evaluations']} loss evaluations in "
+          f"{dragon['train_s']:.2f} s (median epoch {dragon['epoch_s_median']:.4f} s); CG "
+          f"{dragon['cg']}; eval {dragon['eval_s']:.2f} s, vanilla {dragon['vanilla_s']:.2f} s")
+    print(f"  training launches: forward {dragon['train_launches']['forward']} by width "
+          f"{drg_fwd_by}, K3 {dragon['train_launches']['bwd_blocks']} by width {drg_bwd_by}")
+    print(f"  IMGP RMSE {dragon['imgp_rmse']:.6f} NLL {dragon['imgp_nll']:.6f} (JAX recorded "
+          f"0.0434 / -1.6139, PARITY.md); vanilla ({DRAGON_VANILLA_EPOCHS} epochs) RMSE "
+          f"{dragon['vanilla_rmse']:.6f} NLL {dragon['vanilla_nll']:.6f}")
+    for key in ("imgp_loss", "imgp_rmse", "imgp_nll", "vanilla_rmse", "vanilla_nll"):
+        if not np.isfinite(dragon[key]):
+            fail(f"dragon {key} is not finite: {dragon[key]}")
+    if not dragon["params_finite"]:
+        fail("the dragon's trained hyperparameters are not finite")
+    for width in ("64", "1"):
+        if drg_fwd_by.get(width, 0) <= 0:
+            fail(f"the dragon's training made no forward launch at B = {width}: {drg_fwd_by}")
+    if dragon["train_launches"]["bwd_blocks"] <= 0:
+        fail("the dragon's training launched no panel cotangent (K3)")
+    if not dragon["imgp_rmse"] < DRAGON_RMSE_MAX:
+        fail(f"dragon IMGP RMSE {dragon['imgp_rmse']} >= {DRAGON_RMSE_MAX}")
+    # both kernels against their plain versions at the dragon's layout (S = 5)
+    dragon["kernel_vs_plain"] = hold_at_layout(
+        handles["model"], handles["params"], "dragon", (1, 64, LOBPCG_MODES), (1, 64), 12, dev)
+    del handles
+
+    paths = {
+        "forward": {"srmnist_semisup": srm_all["forward"],
+                    "srmnist_semisup_train_by_batch": srm_fwd_by,
+                    "srmnist_semisup_eval_by_batch": srm["eval_forward_launches_by_batch"],
+                    "srmnist_sup": srm_sup_launches["forward"],
+                    "dragon": dragon_all["forward"], "dragon_train_by_batch": drg_fwd_by},
+        "bwd_blocks": {"srmnist_semisup": srm_all["bwd_blocks"],
+                       "srmnist_semisup_by_batch": srm_bwd_by,
+                       "srmnist_sup": srm_sup_launches["bwd_blocks"],
+                       "dragon": dragon_all["bwd_blocks"], "dragon_by_batch": drg_bwd_by},
+        "required": [srm_all["forward"], srm_all["bwd_blocks"], dragon_all["forward"],
+                     dragon_all["bwd_blocks"]],
+    }
+    return report, paths
 
 
 def main():
@@ -919,7 +1228,7 @@ def main():
 
     print("== phase 4b: panel-cotangent kernel vs plain at the training path's shapes")
     main_bwd = []
-    for batch in (1, 48):
+    for batch in (1, 48, 100):
         v = torch.randn((layout.num_nodes, batch), generator=gen, device=dev)
         pvb = permute_in(layout, v).contiguous()
         gct = torch.randn((layout.num_padded, batch), generator=gen, device=dev)
@@ -1522,27 +1831,10 @@ def main():
     if pins_failures:
         fail(f"spiral check-pins: {pins_failures}")
     # The kernels against their plain versions at the spiral's own layout
-    # (S = 3, the widths its training and basis launch), after the counts
-    # are read: the comparisons are not the main path's launches.
-    slayout = smodel.kernel.block_layout
-    if not isinstance(slayout, BlockLayout):
-        fail(f"the spiral took {type(slayout).__name__}, not block-ELL")
-    with torch.no_grad():
-        scoeffs = smodel.kernel.coeffs(sparams)
-        spanels = assemble(slayout, scoeffs.diag, scoeffs.triu)
-    sgen = torch.Generator(device=dev).manual_seed(10)
-    spiral_cmp = []
-    for batch in (1, 64, LOBPCG_MODES, 3 * LOBPCG_MODES):
-        v = torch.randn((slayout.num_nodes, batch), generator=sgen, device=dev)
-        spiral_cmp.append(compare(slayout, spanels, permute_in(slayout, v).contiguous(),
-                                  "spiral float32"))
-    for batch in (1, 64):
-        v = torch.randn((slayout.num_nodes, batch), generator=sgen, device=dev)
-        gct = torch.randn((slayout.num_padded, batch), generator=sgen, device=dev)
-        spiral_cmp.append(compare_bwd(slayout, gct, permute_in(slayout, v).contiguous(),
-                                      torch.float32, "spiral bwd float32"))
-    spiral["kernel_vs_plain"] = spiral_cmp
-    del handles, smodel, sparams, spanels, scoeffs, v, gct
+    # (S = 3, the widths its training and basis launch).
+    spiral["kernel_vs_plain"] = hold_at_layout(
+        smodel, sparams, "spiral", (1, 64, LOBPCG_MODES, 3 * LOBPCG_MODES), (1, 64), 10, dev)
+    del handles, smodel, sparams
 
     print("== phase 10a: spiral5k-semisup parity (and the vanilla BBMM loss) vs the JAX pins")
     spins = json.loads((ROOT / "examples_torch" / "semisup_pins.json").read_text())
@@ -1571,11 +1863,14 @@ def main():
             fail(f"{label} gradients differ from the JAX pins by {rec['grad_rel_of_max']:.2e}")
     report["spiral_parity"] = {"layout": lay, **parity}
 
+    ref_report, ref_paths = reference_protocols(dev)
+    report.update(ref_report)
+
     # -- result --------------------------------------------------------------
     f32 = main[0]
     bwd = next(r for r in main_bwd if r["batch"] == 48 and r["out_dtype"] == "float32")
     if min(launches, lobpcg_launches, train_fwd, train_bwd, curve_counts["dia_launches"],
-           spiral_fwd, spiral_bwd) <= 0:
+           spiral_fwd, spiral_bwd, *ref_paths["required"]) <= 0:
         fail("a kernel of a main path was never launched on it")
     kernels = [{
         "name": "block_ell_spmv",
@@ -1591,7 +1886,8 @@ def main():
             "precond_build": tres["gradients"]["trained"]["pivchol"]["build_launches"][
                 "spmv_launches"],
             "spiral_semisup": spiral_fwd, "spiral_semisup_by_batch": spiral_fwd_by,
-            "spiral_basis_by_batch": spiral["basis_launches_by_batch"]},
+            "spiral_basis_by_batch": spiral["basis_launches_by_batch"],
+            **ref_paths["forward"]},
         "max_abs_err": f32["stream_matvec_call"]["max_abs_err"],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -1614,7 +1910,8 @@ def main():
         "launches": train_bwd,
         "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd,
                              "spiral_semisup": spiral_bwd,
-                             "spiral_semisup_by_batch": spiral_bwd_by},
+                             "spiral_semisup_by_batch": spiral_bwd_by,
+                             **ref_paths["bwd_blocks"]},
         "max_abs_err": bwd["block_bwd_blocks"]["max_abs_err"],
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

@@ -45,7 +45,6 @@ import math
 import pathlib
 import statistics
 import sys
-import time
 
 import numpy as np
 
@@ -69,34 +68,6 @@ def spiral_dataset(n: int = 10_010, windings: float = 6.0, ambient_dim: int = 20
     x += noise * rng.standard_normal(x.shape).astype(np.float32)
     y = np.sin(freq * 2.0 * np.pi * u).astype(np.float32)
     return x.astype(np.float32), y, u
-
-
-class _EpochClock:
-    """``metrics`` hook of the training loops: the host clock at the end of
-    every epoch (each epoch reads its loss back, so the clock follows the
-    device), and the device memory still allocated then (flat from epoch
-    to epoch when no epoch's autograd graph outlives it)."""
-
-    def __init__(self, cuda: bool):
-        import torch
-
-        self.allocated = torch.cuda.memory_allocated if cuda else (lambda: None)
-        self.stamps = [time.perf_counter()]
-        self.bytes = []
-
-    def record(self, epoch, **values):
-        self.stamps.append(time.perf_counter())
-        self.bytes.append(self.allocated())
-
-    def epoch_seconds(self):
-        return [b - a for a, b in zip(self.stamps, self.stamps[1:])]
-
-
-def _cg_summary(iters):
-    if not iters:
-        return {"solves": 0}
-    return {"solves": len(iters), "mean": statistics.fmean(iters), "max": max(iters),
-            "total": sum(iters)}
 
 
 def build_problem(n: int = 10_010, num_labeled: int = 1001, windings: float = 6.0,
@@ -169,12 +140,10 @@ def run_experiment(max_iter: int = 30, seed: int = 1337, verbose: bool = False,
         vanilla_train,
     )
 
-    cuda = torch.device(device).type == "cuda"
+    from examples_torch import reference_protocol as rp
 
-    def clock():
-        if cuda:
-            torch.cuda.synchronize()
-        return time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    clock = rp.device_clock(cuda)
 
     t0 = clock()
     model, labeled, train_y, eval_x, eval_y = build_problem(seed=seed, device=device,
@@ -184,13 +153,11 @@ def run_experiment(max_iter: int = 30, seed: int = 1337, verbose: bool = False,
     n_lab = int(labeled.sum())
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = 0
-    cuda_spmv.launch_count_by_batch.clear()
-    cuda_spmv.bwd_launch_count_by_batch.clear()
+    rp.reset_launch_counts()
     cg.iteration_log = []
     params = model.init_params(noise=1e-2, outputscale=1.0, graphbandwidth=1.0,
                                lengthscale=1.0)
-    epochs = _EpochClock(cuda)
+    epochs = rp.EpochClock(cuda)
     t0 = clock()
     try:
         params, loss, history = manifold_informed_train(
@@ -203,12 +170,7 @@ def run_experiment(max_iter: int = 30, seed: int = 1337, verbose: bool = False,
         train_log = cg.iteration_log
     finally:
         cg.iteration_log = None
-    train_launches = {
-        "forward": cuda_spmv.launch_count, "bwd_blocks": cuda_spmv.bwd_launch_count,
-        "forward_by_batch": {str(b): c for b, c in sorted(cuda_spmv.launch_count_by_batch.items())},
-        "bwd_blocks_by_batch": {str(b): c for b, c in
-                                sorted(cuda_spmv.bwd_launch_count_by_batch.items())},
-    }
+    train_launches = rp.launch_snapshot()
     train_peak = int(torch.cuda.max_memory_allocated()) if cuda else None
     print(f"[manifold] final loss {loss:.4f} ({train_s:.1f}s)", file=sys.stderr)
     before = cuda_spmv.launch_count
@@ -268,8 +230,8 @@ def run_experiment(max_iter: int = 30, seed: int = 1337, verbose: bool = False,
         "eval_launches": eval_launches,
         # inner: the Schur operator's solves on the unlabeled block; outer:
         # the solves (and SLQ's) on the labeled block's Schur operator
-        "inner_cg": _cg_summary([it for label, _, _, it in train_log if label == "schur_inner"]),
-        "outer_cg": _cg_summary([it for label, rows, _, it in train_log
+        "inner_cg": rp.cg_summary([it for label, _, _, it in train_log if label == "schur_inner"]),
+        "outer_cg": rp.cg_summary([it for label, rows, _, it in train_log
                                  if label is None and rows == n_lab]),
         "train_peak_mem_bytes": train_peak,
         "allocated_bytes_after_epoch": {"first": epochs.bytes[0], "last": epochs.bytes[-1]},

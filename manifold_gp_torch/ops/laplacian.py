@@ -71,6 +71,14 @@ def adjacency_matvec_ell(graph: SparseGraph, triu: torch.Tensor, v: torch.Tensor
     return out
 
 
+def adjacency_matvec_coo(graph: SparseGraph, triu: torch.Tensor, v: torch.Tensor):
+    """A_sym @ v via two scatter-adds over the COO triu list (the reference's
+    2x spmm structure, graph_laplacian_operator.py:118-119): the oracle the
+    tests hold the ELL, block-ELL and DIA paths to."""
+    out = torch.zeros_like(v).index_add(0, graph.rows, triu[:, None] * v[graph.cols])
+    return out.index_add(0, graph.cols, triu[:, None] * v[graph.rows])
+
+
 def gershgorin_bound(graph: SparseGraph, coeffs: LaplacianCoeffs):
     """Upper bound on lambda_max(L_sym): max_i (diag_i + sum_j |offdiag_ij|),
     times 1.01."""

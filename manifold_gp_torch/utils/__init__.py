@@ -5,6 +5,14 @@ from .convert import (
     params_from_jax,
     params_to_numpy,
 )
+from .datasets import (
+    manifold_1D_dataset,
+    manifold_2D_dataset,
+    parse_msh,
+    parse_stl,
+    rmnist_dataset,
+    rotate_mnist,
+)
 from .evaluate import gaussian_nll, gaussian_nll_stochastic, test_model
 from .sampling import grid_uniform, sample_posterior
 from .train import ReduceLROnPlateau, manifold_informed_train, vanilla_train
@@ -17,10 +25,16 @@ __all__ = [
     "grid_uniform",
     "load_params",
     "load_training_state",
+    "manifold_1D_dataset",
+    "manifold_2D_dataset",
     "manifold_informed_train",
     "params_from_constrained",
     "params_from_jax",
     "params_to_numpy",
+    "parse_msh",
+    "parse_stl",
+    "rmnist_dataset",
+    "rotate_mnist",
     "sample_posterior",
     "save_params",
     "save_training_state",

@@ -105,6 +105,22 @@ def test_laplacian_matvec_vector_block_paths(graphs, transposed):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5 * float(want.abs().max()))
 
 
+def test_adjacency_matvec_coo_matches_jax(graphs):
+    """The COO oracle (two scatter-adds over the triu list) against JAX's on
+    the same graph (1e-6 of the largest entry: f32 sums in another order),
+    and the ELL gather path against it."""
+    jg, tg = graphs
+    jc = jlap.laplacian_coeffs(jg, EPS)
+    tc = tlap.laplacian_coeffs(tg, EPS)
+    v = np.random.default_rng(6).standard_normal((tg.num_nodes, 4)).astype(np.float32)
+    got = tlap.adjacency_matvec_coo(tg, tc.triu, torch.from_numpy(v)).numpy()
+    want = np.asarray(jlap.adjacency_matvec_coo(jg, jc.triu, jnp.asarray(v)))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale)
+    ell = tlap.adjacency_matvec_ell(tg, tc.triu, torch.from_numpy(v)).numpy()
+    np.testing.assert_allclose(ell, got, rtol=0, atol=1e-6 * scale)
+
+
 def test_gershgorin_bound_matches_jax(graphs):
     jg, tg = graphs
     want = float(jlap.gershgorin_bound(jg, jlap.laplacian_coeffs(jg, EPS)))
