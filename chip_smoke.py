@@ -161,6 +161,35 @@ Phases (any failure exits non-zero before the result line is printed):
      beside JAX's recorded 0.0434 / -1.6139; then holds the forward kernel
      (B = 1, 64, 100) and K3 (f32 out, B = 1, 64) to their plain versions
      at the dragon's layout.
+  13. the JAX package's production campaign cycle
+     (examples_torch/run_large.py::run_campaign): the 262,144-point torus
+     (260,096 training points), 3 epochs, checkpoints and a
+     pivoted-Cholesky refresh every epoch, run twice in one fresh cache
+     directory; the graph is IVF (2,048 lists, nprobe 16). Fails if the
+     first run hits a cache or the second misses one, if the second result
+     differs from the first in any bit, if RMSE vs truth is not below the
+     label-noise floor, on a non-finite loss or NLL, or without forward and
+     K3 launches over the first run (counts reset just before it), or if
+     five loss-and-gradient evaluations at the trained point from one probe
+     seed differ in any bit (all in PyTorch's default mode); then both
+     block-ELL kernels held to their plain versions at the campaign's own
+     layout: f32 panels (B = 1, 48, 100, 125), the training's bf16 panels
+     (B = 1, 48, 100) and K3 (f32 out, B = 1, 48);
+  13a. graph backends on the campaign's training points: the exact device
+     search and IVF (k-means and lists, search, host symmetrize timed
+     apart), IVF recall of the 15 neighbours against the exact search
+     (>= 0.95), a second IVF build equal bit for bit, the share of edges
+     that differ, the IVF peak memory; the
+     brute-force host search (g++ build of the package's native library)
+     against the device search at 65,536 points, whose picks must differ
+     only in f32 ties;
+  13b. multi_start_train: 4 random restarts x 10 steps on the 10,010-point
+     SRMNIST-shaped cloud (k = 50, block-ELL), the seconds a restart
+     against one manifold_informed_train of 10 epochs; fails on a
+     non-finite loss, a best that is not the argmin, or no forward / K3
+     launch; then holds the forward kernel (B = 1, 64) and K3 (f32 out,
+     B = 1, 64) to their plain versions at the cloud's layout, in its panel
+     type, at the best restart's coefficients.
 Then one JSON line with the kernel table, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -226,6 +255,19 @@ DIA_WIDTHS = (1, 2, 3, 4, 5, 8, 17, 33, 37, 64, 99, 100, 127, 128, 129, 200)
 EDGE_TIES = 1e-4  # share of kNN edges the port's and JAX's searches may
                   # pick differently where two distances tie in f32 (one
                   # edge in 57,878 on the 16k curve)
+
+CAMPAIGN_N = 262_144  # phase 13: the campaign's default size (260,096 training points)
+CAMPAIGN_EPOCHS = 3  # of its 50
+# what the second campaign run must reproduce exactly (its caches hit)
+CAMPAIGN_SAME = ("value", "final_loss", "history", "graphbandwidth_trained",
+                 "lengthscale_trained", "noise_trained", "outputscale_trained",
+                 "rmse_noisy_test", "nll_noisy_test", "num_edges", "cg_iters_initial",
+                 "cg_iters_trained")
+IVF_RECALL_MIN = 0.95  # phase 13a: IVF (nprobe 16 of 2,048 lists) against the exact search
+HOST_KNN_N = 65_536  # phase 13a: the brute-force host search's size
+TIE_SQDIST = 2e-6  # a neighbour tie: f32 rounding of |q|^2 + |x|^2 - 2 q.x at |x|^2 <= 2
+GRAD_REPEATS = 5  # phase 13: loss-and-gradient evaluations held bit for bit
+RESTARTS, RESTART_STEPS = 4, 10  # phase 13b
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # HBM bytes/s, f32 FLOP/s outside the tensor cores, bf16 tensor FLOP/s.
@@ -393,12 +435,14 @@ def compare_bwd(layout, g, pv, out_dtype, label, timing=None):
     return rec
 
 
-def hold_at_layout(model, params, label, fwd_widths, bwd_widths, seed, dev):
+def hold_at_layout(model, params, label, fwd_widths, bwd_widths, seed, dev,
+                   panel_dtype=None):
     """Both block-ELL kernels against their plain versions at a trained
-    model's own layout (f32 panels at its coefficients): the forward kernel
-    through both entry points at ``fwd_widths``, K3 with f32 output at
-    ``bwd_widths``. Run after a phase's counts are read: these launches are
-    not the main path's. Returns the records."""
+    model's own layout (panels of ``panel_dtype``, default f32, at its
+    coefficients): the forward kernel through both entry points at
+    ``fwd_widths``, K3 with f32 output at ``bwd_widths``. Run after a
+    phase's counts are read: these launches are not the main path's.
+    Returns the records."""
     import torch
 
     from manifold_gp_torch.ops.block_sparse import BlockLayout, assemble, permute_in
@@ -408,13 +452,14 @@ def hold_at_layout(model, params, label, fwd_widths, bwd_widths, seed, dev):
         fail(f"{label} took {type(layout).__name__}, not block-ELL")
     with torch.no_grad():
         coeffs = model.kernel.coeffs(params)
-        panels = assemble(layout, coeffs.diag, coeffs.triu)
+        panels = assemble(layout, coeffs.diag, coeffs.triu, dtype=panel_dtype)
+    dtype_name = "float32" if panel_dtype is None else str(panel_dtype).replace("torch.", "")
     gen = torch.Generator(device=dev).manual_seed(seed)
     records = []
     for batch in fwd_widths:
         v = torch.randn((layout.num_nodes, batch), generator=gen, device=dev)
         records.append(compare(layout, panels, permute_in(layout, v).contiguous(),
-                               f"{label} float32"))
+                               f"{label} {dtype_name}"))
     for batch in bwd_widths:
         v = torch.randn((layout.num_nodes, batch), generator=gen, device=dev)
         gct = torch.randn((layout.num_padded, batch), generator=gen, device=dev)
@@ -890,6 +935,308 @@ def reference_protocols(dev) -> dict:
                      dragon_all["bwd_blocks"]],
     }
     return report, paths
+
+
+def production_campaign(dev) -> tuple:
+    """Phases 13, 13a and 13b: the JAX package's production campaign cycle
+    through ``examples_torch/run_large.py::run_campaign`` (twice, in one
+    fresh cache directory), the graph backends side by side, and multi-start
+    training. Returns their report entries and the kernels line's launch
+    counts of these paths (as ``reference_protocols`` does)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from examples_torch import reference_protocol as rp
+    from examples_torch.run_large import (
+        campaign_data,
+        campaign_graph_backend,
+        cloud_model,
+        loss_and_grad,
+        run_campaign,
+        torus_points,
+    )
+    from manifold_gp_torch.kernels.riemann import _panel_dtype_of
+    from manifold_gp_torch.ops.graph import pin_self_match, symmetrize_knn_edges
+    from manifold_gp_torch.ops.knn import ivf_build, ivf_search, knn_search
+    from manifold_gp_torch.utils import (
+        manifold_informed_train,
+        multi_start_train,
+        random_restarts,
+    )
+    from manifold_gp_torch.utils import native
+
+    report = {}
+
+    # -- phase 13: the torus campaign, twice, one fresh cache ------------------
+    print("== phase 13: the 262,144-point torus campaign (run_campaign) twice in one fresh cache")
+    torch.cuda.empty_cache()
+    cache = tempfile.mkdtemp(prefix="mgp_campaign_")
+    kw = dict(n=CAMPAIGN_N, manifold="torus", epochs=CAMPAIGN_EPOCHS, checkpoint_every=1,
+              precond_refresh=1, cache_dir=cache, device=dev)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        rp.reset_launch_counts()
+        t0 = time.perf_counter()
+        first, params, model = run_campaign(metrics_path=f"{cache}/metrics.jsonl", **kw)
+        first_s = time.perf_counter() - t0
+        first_launches = rp.launch_snapshot()
+        first_peak = torch.cuda.max_memory_allocated(dev)
+        metric_rows = len(pathlib.Path(cache, "metrics.jsonl").read_text().splitlines())
+        ckpt = sorted(p.name for p in pathlib.Path(cache).glob("campaign_*.ckpt.npz"))
+        t0 = time.perf_counter()
+        second, _, _ = run_campaign(**kw)
+        second_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    same = {key: first[key] == second[key] for key in CAMPAIGN_SAME}
+    # the library's own determinism, in PyTorch's default mode: one loss and
+    # its gradients at the trained point, evaluated again from the same probes
+    repeats = [loss_and_grad(model, params, generator=torch.Generator(device=dev).manual_seed(5))
+               for _ in range(GRAD_REPEATS)]
+    repeat_same = all(r == repeats[0] for r in repeats[1:])
+    print(f"  graph [{first['graph_backend']}] {first['graph_build_s']:.2f} s, "
+          f"{first['num_edges']} edges; layout {first['layout_s']:.2f} s; CG iterations initial "
+          f"{first['cg_iters_initial']}, trained {first['cg_iters_trained']}")
+    print(f"  {CAMPAIGN_EPOCHS} epochs {first['train_s']:.2f} s (epochs "
+          + ", ".join(f"{t:.3f}" for t in first["epoch_s"]) + " s); basis "
+          f"{first['basis_s']:.2f} s; eval {first['eval_s']:.2f} s; first run {first_s:.1f} s, "
+          f"peak {first_peak / 1e9:.3f} GB")
+    print(f"  RMSE vs truth {first['value']:.6f} (noise floor {first['noise_floor_rmse']:.6f}); "
+          f"noisy test RMSE {first['rmse_noisy_test']:.6f} NLL {first['nll_noisy_test']:.6f}; "
+          f"final loss {first['final_loss']:.6f}; trained bandwidth "
+          f"{first['graphbandwidth_trained']:.6f} lengthscale {first['lengthscale_trained']:.6f} "
+          f"noise {first['noise_trained']:.6g} outputscale {first['outputscale_trained']:.6f}")
+    print(f"  launches over the first run: forward {first_launches['forward']} by width "
+          f"{first_launches['forward_by_batch']}, K3 {first_launches['bwd_blocks']} by width "
+          f"{first_launches['bwd_blocks_by_batch']}; metrics rows {metric_rows}; checkpoint {ckpt}")
+    print(f"  second run {second_s:.1f} s: graph hit {second['graph_cache_hit']} "
+          f"({second['graph_build_s']:.2f} s), basis hit {second['basis_cache_hit']} "
+          f"({second['basis_s']:.3f} s), {CAMPAIGN_EPOCHS} epochs {second['train_s']:.2f} s; "
+          f"identical: {all(same.values())}")
+    print(f"  {GRAD_REPEATS} loss-and-gradient evaluations at the trained point from one "
+          f"probe seed: loss {repeats[0][0]!r}, equal bit for bit: {repeat_same}")
+    report["campaign"] = {"first": first, "second": second, "grad_repeats": repeats,
+                          "grad_repeats_same": repeat_same, "first_s": first_s,
+                          "second_s": second_s, "first_peak_mem_bytes": first_peak,
+                          "launches": first_launches, "metrics_rows": metric_rows,
+                          "checkpoints": ckpt, "identical": same}
+    if first["graph_cache_hit"] or first["basis_cache_hit"]:
+        fail("the campaign's first run hit a cache in a fresh directory")
+    if not (second["graph_cache_hit"] and second["basis_cache_hit"]):
+        fail("the campaign's second run missed a cache")
+    if not first["graph_backend"].startswith("ivf-"):
+        fail(f"the 262k campaign built its graph with {first['graph_backend']}, not IVF")
+    if not all(same.values()):
+        fail(f"the second campaign run differs from the first: {same}")
+    if not repeat_same:
+        fail(f"the loss and gradients at the trained point differ between evaluations: {repeats}")
+    if not first["value"] < first["noise_floor_rmse"]:
+        fail(f"campaign RMSE vs truth {first['value']} >= noise floor {first['noise_floor_rmse']}")
+    if not (np.isfinite(first["final_loss"]) and np.isfinite(first["nll_noisy_test"])):
+        fail("the campaign's loss or NLL is not finite")
+    if first_launches["forward"] <= 0 or first_launches["bwd_blocks"] <= 0:
+        fail(f"the campaign launched no forward kernel or no K3: {first_launches}")
+    if metric_rows != CAMPAIGN_EPOCHS or not ckpt:
+        fail(f"the campaign wrote {metric_rows} metrics rows and checkpoints {ckpt}")
+    # the campaign's layout: f32 panels at the basis's widths, bf16 panels
+    # (the training's) at the trainer's, K3 at the trainer's
+    report["campaign"]["kernel_vs_plain"] = hold_at_layout(
+        model, params, "campaign", (1, 48, 100, 125), (1, 48), 13, dev) + hold_at_layout(
+        model, params, "campaign", (1, 48, 100), (), 14, dev, panel_dtype=torch.bfloat16)
+    del model, params
+
+    # -- phase 13a: graph backends side by side -------------------------------
+    print("== phase 13a: graph backends on the campaign's training points")
+    torch.cuda.empty_cache()
+    train_x = campaign_data(CAMPAIGN_N, 2048, 0, "torus")[0]
+    n_tr, k = train_x.shape[0], 16
+    xt = torch.from_numpy(train_x).to(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (sqd_e, idx_e), exact_search_s = timed(lambda: knn_search(xt, xt, k, self_query=True))
+    g_exact, exact_host_s = timed(lambda: symmetrize_knn_edges(
+        sqd_e.cpu().numpy(), idx_e.cpu().numpy(), n_tr, x=train_x, device=dev))
+    backend, ivf_kw = campaign_graph_backend(n_tr, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    index, ivf_build_s = timed(lambda: ivf_build(xt, nlist=ivf_kw["ivf_nlist"],
+                                                 kmeans_iters=ivf_kw["ivf_kmeans_iters"]))
+    (sqd_i, idx_i), ivf_search_s = timed(lambda: ivf_search(
+        index, xt, k, nprobe=ivf_kw["ivf_nprobe"], self_query=True))
+    ivf_peak = torch.cuda.max_memory_allocated(dev)
+    # the k-means sums run in a fixed order: a second build is the same index
+    again = ivf_build(xt, nlist=ivf_kw["ivf_nlist"], kmeans_iters=ivf_kw["ivf_kmeans_iters"])
+    ivf_repeats = bool(torch.equal(again.centroids, index.centroids)
+                       and torch.equal(again.lists, index.lists))
+    del again
+    g_ivf, ivf_host_s = timed(lambda: symmetrize_knn_edges(
+        sqd_i.cpu().numpy(), idx_i.cpu().numpy(), n_tr, x=train_x, device=dev))
+    # recall of the k - 1 neighbours past the self-match
+    recall = float((idx_i[:, 1:, None] == idx_e[:, None, 1:]).any(-1).float().mean())
+    e_exact, e_ivf = edge_keys(g_exact), edge_keys(g_ivf)
+    common = np.intersect1d(e_exact, e_ivf).size
+    graphs = {
+        "n": n_tr, "k": k,
+        "exact": {"search_s": exact_search_s, "host_s": exact_host_s,
+                  "build_graph_s": exact_search_s + exact_host_s, "num_edges": int(e_exact.size)},
+        "ivf": {"backend": backend, "nlist": index.nlist, "list_width": int(index.lists.shape[1]),
+                "kmeans_build_s": ivf_build_s, "search_s": ivf_search_s, "host_s": ivf_host_s,
+                "build_graph_s": ivf_build_s + ivf_search_s + ivf_host_s,
+                "num_edges": int(e_ivf.size), "peak_mem_bytes": ivf_peak},
+        "ivf_recall": recall,
+        "ivf_build_repeats": ivf_repeats,
+        "edges_differ_share": 1.0 - common / e_exact.size,
+        "ivf_only_edges": int(e_ivf.size - common),
+    }
+    print(f"  exact (device) {graphs['exact']['build_graph_s']:.2f} s = search "
+          f"{exact_search_s:.2f} + host {exact_host_s:.2f}, {e_exact.size} edges")
+    print(f"  IVF [{backend}] {graphs['ivf']['build_graph_s']:.2f} s = k-means and lists "
+          f"{ivf_build_s:.2f} + search {ivf_search_s:.2f} + host {ivf_host_s:.2f}, "
+          f"{e_ivf.size} edges; {index.nlist} lists, width {index.lists.shape[1]}; peak "
+          f"{ivf_peak / 1e9:.3f} GB")
+    print(f"  IVF recall@{k - 1} {recall:.6f}; edges of the exact graph missing from IVF's "
+          f"{graphs['edges_differ_share']:.6f}; IVF-only edges {graphs['ivf_only_edges']}; "
+          f"a second IVF build equal bit for bit: {ivf_repeats}")
+    del xt, sqd_e, idx_e, sqd_i, idx_i, index, g_exact, g_ivf
+
+    # the brute-force host search against the exact device search
+    x_host = torus_points(HOST_KNN_N, seed=0)[0]
+    _, native_build_s = timed(native.build_native)
+    # build_graph's "host" steps: the search, the self pin, the host tail
+    (sqd_h, idx_h), host_search_s = timed(lambda: native.knn_search_host(x_host, x_host, k))
+    self_moved = int((idx_h[:, 0] != np.arange(HOST_KNN_N)).sum())
+    (sqd_h, idx_h), pin_s = timed(lambda: pin_self_match(sqd_h, idx_h))
+    g_host, host_host_s = timed(lambda: symmetrize_knn_edges(sqd_h, idx_h, HOST_KNN_N, x=x_host,
+                                                             device=dev))
+    xh_t = torch.from_numpy(x_host).to(dev)
+    (sqd_d, idx_d), dev_search_s = timed(lambda: knn_search(xh_t, xh_t, k, self_query=True))
+    g_dev, dev_host_s = timed(lambda: symmetrize_knn_edges(
+        sqd_d.cpu().numpy(), idx_d.cpu().numpy(), HOST_KNN_N, x=x_host, device=dev))
+    h_keys, d_keys = edge_keys(g_host), edge_keys(g_dev)
+    tie_gap = knn_tie_gap(x_host, idx_h, idx_d.cpu().numpy())
+    graphs["host_vs_device"] = {
+        "n": HOST_KNN_N, "native_build_s": native_build_s,
+        "host_search_s": host_search_s, "self_match_moved_rows": self_moved,
+        "host_build_graph_s": host_search_s + pin_s + host_host_s,
+        "device_search_s": dev_search_s, "device_build_graph_s": dev_search_s + dev_host_s,
+        "host_edges": int(h_keys.size), "device_edges": int(d_keys.size),
+        "edges_differ": int(np.setxor1d(h_keys, d_keys).size), **tie_gap}
+    hv = graphs["host_vs_device"]
+    print(f"  {HOST_KNN_N} points: host brute force {hv['host_build_graph_s']:.2f} s (search "
+          f"{host_search_s:.2f}; g++ build {native_build_s:.2f} s, not in it) against the "
+          f"device's {hv['device_build_graph_s']:.2f} s (search {dev_search_s:.2f}); edges "
+          f"{hv['host_edges']} / {hv['device_edges']}, {hv['edges_differ']} differ on "
+          f"{hv['rows_differ']} rows (the host search left {self_moved} self-matches out of "
+          f"column 0: f32 ties at distance 0); largest f64 excess over a row's true k-th "
+          f"distance: host "
+          f"{hv['host_excess']:.3g}, device {hv['device_excess']:.3g} (ties within {TIE_SQDIST})")
+    report["graph_backends"] = graphs
+    if not recall >= IVF_RECALL_MIN:
+        fail(f"IVF recall {recall} < {IVF_RECALL_MIN}")
+    if not ivf_repeats:
+        fail("a second IVF build on the same points gave another index")
+    if max(hv["host_excess"], hv["device_excess"]) > TIE_SQDIST:
+        fail(f"the host and device searches differ beyond ties: {hv}")
+    del xh_t, g_host, g_dev
+
+    # -- phase 13b: multi-start training ---------------------------------------
+    print(f"== phase 13b: multi_start_train, {RESTARTS} random restarts x {RESTART_STEPS} steps, "
+          "on the 10,010-point SRMNIST-shaped cloud (k = 50)")
+    torch.cuda.empty_cache()
+    cmodel = cloud_model(device=dev)
+    inits = random_restarts(cmodel, 0, RESTARTS, graphbandwidth_range=(0.3, 1.0),
+                            lengthscale_range=(0.5, 5.0))
+    rp.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, best_loss, losses = multi_start_train(cmodel, inits, lr=0.1, max_iter=RESTART_STEPS - 1)
+    torch.cuda.synchronize()
+    multi_s = time.perf_counter() - t0
+    ms_launches = rp.launch_snapshot()
+    single_init = {key: v.detach().clone() for key, v in inits[0].items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manifold_informed_train(cmodel, single_init, lr=0.1, max_iter=RESTART_STEPS - 1,
+                            tolerance=1e-2, num_rand_vec=100)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    layout = cmodel.kernel.block_layout
+    losses = [float(v) for v in losses]
+    multi = {"restarts": RESTARTS, "steps": RESTART_STEPS, "losses": losses, "best": best_loss,
+             "best_index": int(np.argmin(losses)), "seconds": multi_s,
+             "s_per_restart": multi_s / RESTARTS, "single_train_s": single_s,
+             "launches": ms_launches, "max_blocks": int(layout.max_blocks),
+             "num_row_blocks": int(layout.num_row_blocks),
+             "inits": [{"graphbandwidth": float(cmodel.kernel.graphbandwidth(p)),
+                        "lengthscale": float(cmodel.kernel.lengthscale(p))} for p in inits]}
+    print(f"  layout S={multi['max_blocks']} row blocks={multi['num_row_blocks']}; inits "
+          + ", ".join(f"({i['graphbandwidth']:.3f}, {i['lengthscale']:.3f})" for i in multi["inits"]))
+    print(f"  final losses {[round(v, 6) for v in losses]}, best {multi['best_index']}; "
+          f"{multi_s:.2f} s, {multi['s_per_restart']:.3f} s a restart against "
+          f"{single_s:.3f} s for one manifold_informed_train of {RESTART_STEPS} epochs "
+          f"(with its two outputscale estimates)")
+    print(f"  launches: forward {ms_launches['forward']} by width "
+          f"{ms_launches['forward_by_batch']}, K3 {ms_launches['bwd_blocks']}")
+    report["multistart"] = multi
+    if not all(np.isfinite(losses)):
+        fail(f"multi-start losses are not finite: {losses}")
+    if best_loss != min(losses) or not all(torch.isfinite(v).all() for v in best.values()):
+        fail(f"multi-start best {best_loss} is not the argmin of {losses}, or not finite")
+    if ms_launches["forward"] <= 0 or ms_launches["bwd_blocks"] <= 0:
+        fail(f"multi-start launched no forward kernel or no K3: {ms_launches}")
+    multi["kernel_vs_plain"] = hold_at_layout(
+        cmodel, best, "multistart", (1, 64), (1, 64), 15, dev,
+        panel_dtype=_panel_dtype_of(cmodel.kernel.cfg))
+    del cmodel, best, inits
+
+    paths = {
+        "forward": {"campaign": first_launches["forward"],
+                    "campaign_by_batch": first_launches["forward_by_batch"],
+                    "multistart": ms_launches["forward"],
+                    "multistart_by_batch": ms_launches["forward_by_batch"]},
+        "bwd_blocks": {"campaign": first_launches["bwd_blocks"],
+                       "campaign_by_batch": first_launches["bwd_blocks_by_batch"],
+                       "multistart": ms_launches["bwd_blocks"]},
+        "required": [first_launches["forward"], first_launches["bwd_blocks"],
+                     ms_launches["forward"], ms_launches["bwd_blocks"]],
+    }
+    return report, paths
+
+
+def edge_keys(graph):
+    """A graph's edges as sorted int64 keys row * N + col."""
+    import numpy as np
+
+    n = graph.num_nodes
+    return np.sort(graph.rows.cpu().numpy().astype(np.int64) * n + graph.cols.cpu().numpy())
+
+
+def knn_tie_gap(x, idx_a, idx_b) -> dict:
+    """Where two self-query kNN results pick other neighbours (columns past
+    the self-match), how far each pick lies beyond the row's true (k-1)-th
+    smallest squared distance, in f64: 0 for a right choice, and at most the
+    f32 rounding of the distances for a tie."""
+    import numpy as np
+
+    a, b = np.asarray(idx_a)[:, 1:], np.asarray(idx_b)[:, 1:]
+    rows = np.flatnonzero((np.sort(a, axis=1) != np.sort(b, axis=1)).any(axis=1))
+    x64 = np.asarray(x, np.float64)
+    excess = {"host_excess": 0.0, "device_excess": 0.0}
+    for r in rows:
+        d = np.sum((x64 - x64[r]) ** 2, axis=1)
+        d[r] = np.inf
+        kth = np.partition(d, a.shape[1] - 1)[a.shape[1] - 1]
+        excess["host_excess"] = max(excess["host_excess"], float(d[a[r]].max() - kth))
+        excess["device_excess"] = max(excess["device_excess"], float(d[b[r]].max() - kth))
+    return {"rows_differ": int(rows.size), **excess}
 
 
 def main():
@@ -1401,8 +1748,7 @@ def main():
     parity = {}
     by_mode = {}
     # one campaign, both cotangent spaces: the two modes share the graph and
-    # panels, so they differ only in the backward (two builds would differ in
-    # the last bits of the coefficients, from the atomic scatter-adds)
+    # panels, so they differ only in the backward
     camp = build_campaign(
         n=tpins["n"], device=dev, num_test=tpins["num_test"], k=tpins["k"],
         seed=tpins["seed"], precond_type="jacobi",
@@ -1413,30 +1759,23 @@ def main():
             fail(f"16k training {key}: port {rec[key]} != JAX {tpins[key]}")
     probes = torch.from_numpy(rademacher_numpy(
         tpins["probe_seed"], camp.model.num_data, tpins["num_probes"])).to(dev)
-    # deterministic scatter-adds: otherwise the atomic f32 sums of the
-    # coefficients' index_add move the loss at the trained hyperparameters
-    # by up to ~1e-5 between two evaluations of the same forward
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        for mode in ("edge", "panel"):
-            camp.model.kernel.cfg = camp.model.kernel.cfg.replace(solve_cotangent=mode)
-            torch.cuda.reset_peak_memory_stats(dev)
-            by_mode[mode] = {
-                label: loss_and_grad(camp.model, camp.model.init_params(**pin["hypers"]),
-                                     probes=probes)
-                for label, pin in tpins["pins"].items()
-            }
-            parity[f"peak_mem_bytes_{mode}"] = int(torch.cuda.max_memory_allocated(dev))
-        # phase 7a's numbers: edge-space cotangents, pivoted Cholesky
-        camp.model.kernel.cfg = camp.model.kernel.cfg.replace(solve_cotangent="edge")
-        camp.model.cfg = camp.model.cfg.replace(precond_type="pivchol")
-        by_mode["pivchol"] = {
+    for mode in ("edge", "panel"):
+        camp.model.kernel.cfg = camp.model.kernel.cfg.replace(solve_cotangent=mode)
+        torch.cuda.reset_peak_memory_stats(dev)
+        by_mode[mode] = {
             label: loss_and_grad(camp.model, camp.model.init_params(**pin["hypers"]),
                                  probes=probes)
-            for label, pin in tpins["pins_pivchol"].items()
+            for label, pin in tpins["pins"].items()
         }
-    finally:
-        torch.use_deterministic_algorithms(False)
+        parity[f"peak_mem_bytes_{mode}"] = int(torch.cuda.max_memory_allocated(dev))
+    # phase 7a's numbers: edge-space cotangents, pivoted Cholesky
+    camp.model.kernel.cfg = camp.model.kernel.cfg.replace(solve_cotangent="edge")
+    camp.model.cfg = camp.model.cfg.replace(precond_type="pivchol")
+    by_mode["pivchol"] = {
+        label: loss_and_grad(camp.model, camp.model.init_params(**pin["hypers"]),
+                             probes=probes)
+        for label, pin in tpins["pins_pivchol"].items()
+    }
     del camp, probes
     torch.cuda.empty_cache()
     for label, pin in tpins["pins"].items():
@@ -1503,8 +1842,7 @@ def main():
             checkpoint_path=ckpt, checkpoint_every=100, **kw)
     del camp
     torch.cuda.empty_cache()
-    # same probes and indices from the restored generators; f32 atomics in
-    # the coefficient scatter-adds make runs differ in the last bits
+    # same probes and indices from the restored generators
     resume_err = max(abs(a - b) / abs(a) for a, b in zip(straight[2:], resumed))
     parity["resume"] = {"straight": straight, "resumed_tail": resumed, "max_rel": resume_err}
     print(f"  checkpoint/resume at 16k: epochs 2-3 after a resume {resumed} vs uninterrupted "
@@ -1865,12 +2203,14 @@ def main():
 
     ref_report, ref_paths = reference_protocols(dev)
     report.update(ref_report)
+    prod_report, prod_paths = production_campaign(dev)
+    report.update(prod_report)
 
     # -- result --------------------------------------------------------------
     f32 = main[0]
     bwd = next(r for r in main_bwd if r["batch"] == 48 and r["out_dtype"] == "float32")
     if min(launches, lobpcg_launches, train_fwd, train_bwd, curve_counts["dia_launches"],
-           spiral_fwd, spiral_bwd, *ref_paths["required"]) <= 0:
+           spiral_fwd, spiral_bwd, *ref_paths["required"], *prod_paths["required"]) <= 0:
         fail("a kernel of a main path was never launched on it")
     kernels = [{
         "name": "block_ell_spmv",
@@ -1887,7 +2227,7 @@ def main():
                 "spmv_launches"],
             "spiral_semisup": spiral_fwd, "spiral_semisup_by_batch": spiral_fwd_by,
             "spiral_basis_by_batch": spiral["basis_launches_by_batch"],
-            **ref_paths["forward"]},
+            **ref_paths["forward"], **prod_paths["forward"]},
         "max_abs_err": f32["stream_matvec_call"]["max_abs_err"],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -1911,7 +2251,7 @@ def main():
         "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd,
                              "spiral_semisup": spiral_bwd,
                              "spiral_semisup_by_batch": spiral_bwd_by,
-                             **ref_paths["bwd_blocks"]},
+                             **ref_paths["bwd_blocks"], **prod_paths["bwd_blocks"]},
         "max_abs_err": bwd["block_bwd_blocks"]["max_abs_err"],
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

@@ -36,7 +36,14 @@ hyperparameters, for each preconditioner (pivoted Cholesky, Jacobi, and
 spectral deflation where a basis is given): its build, CG iterations and one
 loss-and-gradient (``precond_comparison``).
 
+``run_campaign``: the whole cycle of ``examples/run_large.py::run_campaign``
+(graph and basis through the keyed on-disk caches, an IVF graph above
+200,000 training points, training with checkpoints and resume, metrics to
+JSONL, the posterior against the truth).
+
 Usage:
+  python examples_torch/run_large.py --manifold torus --cache-dir .mgp_cache  # campaign
+  python examples_torch/run_large.py --campaign --n 8192 --epochs 5 --cpu     # small, CPU
   python examples_torch/run_large.py                 # serve 262,144 points, CUDA
   python examples_torch/run_large.py --n 8192 --cpu  # small serve on the CPU
   python examples_torch/run_large.py --eigensolver lobpcg --love-rank 100
@@ -155,25 +162,10 @@ class Campaign:
     timings: dict
 
 
-def build_campaign(n: int = 262_144, device="cuda", k: int = None, num_test: int = 2048,
-                   num_modes: int = None, seed: int = 0, nu: int = 2,
-                   manifold: str = "torus", **cfg_overrides) -> Campaign:
-    """The campaign up to the model: sample of ``manifold`` ("torus" or
-    "curve"), split, label normalization, exact kNN graph on the device,
-    unit-bandwidth rescale, bandwidth floor, the campaign's InferenceConfig
-    for that manifold (with ``cfg_overrides`` replacing fields of it),
-    kernel and model. ``k`` and ``num_modes`` default to the manifold's."""
-    import torch
-
-    from manifold_gp_torch import InferenceConfig, RiemannGP, RiemannMaternKernel
-    from manifold_gp_torch.config import resolve_device
-    from manifold_gp_torch.ops.graph import build_graph
-    from manifold_gp_torch.parameters import GreaterThan
-
-    device = resolve_device(device)
-    k = MANIFOLDS[manifold]["k"] if k is None else k
-    num_modes = MANIFOLDS[manifold]["num_modes"] if num_modes is None else num_modes
-    timings = {}
+def campaign_data(n: int, num_test: int, seed: int, manifold: str):
+    """The campaign's sample of ``manifold``, labels y_true + 0.1 N(0, 1),
+    the split and the label normalization by train statistics: (train_x,
+    test_x, train_y, test_y, test_y_true, std_y)."""
     rng = np.random.default_rng(seed)
     if manifold == "torus":
         x_all, u_all, v_all = torus_points(n, seed=seed)
@@ -185,14 +177,65 @@ def build_campaign(n: int = 262_144, device="cuda", k: int = None, num_test: int
     perm = rng.permutation(n)
     test_idx = perm[:num_test]
     train_idx = np.sort(perm[num_test:])
-    train_x, test_x = x_all[train_idx], x_all[test_idx]
     mu_y, std_y = y_noisy[train_idx].mean(), y_noisy[train_idx].std(ddof=1)
-    train_y = (y_noisy[train_idx] - mu_y) / std_y
-    test_y = (y_noisy[test_idx] - mu_y) / std_y
-    test_y_true = (y_true[test_idx] - mu_y) / std_y
+    return (x_all[train_idx], x_all[test_idx], (y_noisy[train_idx] - mu_y) / std_y,
+            (y_noisy[test_idx] - mu_y) / std_y, (y_true[test_idx] - mu_y) / std_y, std_y)
+
+
+def cloud_model(device="cuda", n: int = 10_010, k: int = 50, seed: int = 0, **cfg_overrides):
+    """A supervised IMGP model on the SRMNIST-shaped cloud (``srmnist_points``)
+    with labels sin(x_0) + 0.5 cos(x_1) normalized, the graph rescaled to unit
+    bandwidth as the campaign's is, and the default config (block-ELL above
+    4,096 points) with ``cfg_overrides``."""
+    import torch
+
+    from manifold_gp_torch import InferenceConfig, RiemannGP, RiemannMaternKernel
+    from manifold_gp_torch.config import resolve_device
+    from manifold_gp_torch.ops.graph import build_graph
+
+    device = resolve_device(device)
+    x = srmnist_points(n, seed=seed)
+    y = np.sin(x[:, 0]) + 0.5 * np.cos(x[:, 1])
+    y = ((y - y.mean()) / y.std()).astype(np.float32)
+    graph = build_graph(x, k, device=device)
+    eps = 2.0 * float(np.sqrt(np.median(graph.sqdist.cpu().numpy())))
+    eps2 = torch.tensor(np.float32(eps) ** 2, device=device)
+    graph = dataclasses.replace(graph, sqdist=graph.sqdist / eps2)
+    cfg = InferenceConfig().replace(**cfg_overrides)
+    kernel = RiemannMaternKernel(nu=2, x=x / eps, nearest_neighbors=k,
+                                 laplacian_normalization="randomwalk", num_modes=100, cfg=cfg,
+                                 graph=graph, device=device)
+    return RiemannGP(x / eps, y, kernel, cfg=cfg)
+
+
+def build_campaign(n: int = 262_144, device="cuda", k: int = None, num_test: int = 2048,
+                   num_modes: int = None, seed: int = 0, nu: int = 2,
+                   manifold: str = "torus", graph_builder=None, **cfg_overrides) -> Campaign:
+    """The campaign up to the model: sample of ``manifold`` ("torus" or
+    "curve"), split, label normalization, kNN graph (the exact search on the
+    device, or ``graph_builder(train_x, k, device)``'s graph), unit-bandwidth
+    rescale, bandwidth floor, the campaign's InferenceConfig for that
+    manifold (with ``cfg_overrides`` replacing fields of it), kernel and
+    model. ``k`` and ``num_modes`` default to the manifold's."""
+    import torch
+
+    from manifold_gp_torch import InferenceConfig, RiemannGP, RiemannMaternKernel
+    from manifold_gp_torch.config import resolve_device
+    from manifold_gp_torch.ops.graph import build_graph
+    from manifold_gp_torch.parameters import GreaterThan
+
+    device = resolve_device(device)
+    k = MANIFOLDS[manifold]["k"] if k is None else k
+    num_modes = MANIFOLDS[manifold]["num_modes"] if num_modes is None else num_modes
+    timings = {}
+    train_x, test_x, train_y, test_y, test_y_true, std_y = campaign_data(
+        n, num_test, seed, manifold)
 
     t0 = time.perf_counter()
-    graph = build_graph(train_x, k, knn_backend="device", device=device)
+    if graph_builder is None:
+        graph = build_graph(train_x, k, knn_backend="device", device=device)
+    else:
+        graph = graph_builder(train_x, k, device)
     _sync(device)
     timings["graph_build_s"] = time.perf_counter() - t0
 
@@ -658,6 +701,149 @@ def train_campaign(n: int = 262_144, epochs: int = 3, device="cuda", k: int = No
     return result, params, model
 
 
+IVF_MIN_TRAIN = 200_000  # the campaign builds an IVF graph above this many training points
+
+
+def campaign_graph_backend(num_train: int, device):
+    """The campaign's graph search for ``num_train`` points: (the backend
+    string of the graph cache key, ``build_graph`` keywords). Above
+    ``IVF_MIN_TRAIN`` points the IVF search with nlist = 2^round(log2(4
+    sqrt(N))), nprobe 16 and 5 k-means iterations; else the exact search,
+    "device" on a card and "host" on the CPU."""
+    if num_train > IVF_MIN_TRAIN:
+        nlist = 2 ** int(round(np.log2(4.0 * np.sqrt(num_train))))
+        return (f"ivf-nlist{nlist}-nprobe16-it5",
+                dict(knn_backend="ivf", ivf_nlist=nlist, ivf_nprobe=16, ivf_kmeans_iters=5))
+    backend = "device" if device.type == "cuda" else "host"
+    return backend, dict(knn_backend=backend)
+
+
+def run_campaign(n: int = 262_144, k: int = 16, epochs: int = 50, num_test: int = 2048,
+                 num_modes: int = 100, cache_dir: str = ".mgp_cache", checkpoint_every: int = 10,
+                 precond_refresh: int = 10, lr: float = 1e-1, seed: int = 0,
+                 verbose: bool = False, resume: bool = True, nu: int = 2, metrics_path=None,
+                 manifold: str = "torus", device="cuda", probes_fn=None, idx_fn=None):
+    """The campaign's full cycle (the port of ``examples/run_large.py::
+    run_campaign``): the split and label normalization, the graph through
+    the keyed cache (``cached_graph``, the search of
+    ``campaign_graph_backend``), the unit-bandwidth rescale and the
+    manifold's config (``build_campaign``), CG iterations at the initial
+    hyperparameters, ``manifold_informed_train`` with ``precond_refresh``,
+    checkpoints every ``checkpoint_every`` epochs in ``cache_dir`` and
+    resume, metrics to the JSONL file ``metrics_path``, the basis through
+    ``cached_eval_basis``, the held-out scores and the posterior mean's RMSE
+    against the known truth (``value``). ``probes_fn`` / ``idx_fn``: the
+    trainer's shared randomness (see ``manifold_informed_train``).
+
+    A checkpoint written after the last epoch is not resumed (the trainer
+    resumes only a run that has epochs left): a second call with the same
+    arguments trains again from the same seed, and hits both caches: the
+    training repeats bit for bit (the Laplacian's per-node sums are
+    ``ops.laplacian.incident_sum``, with no atomic-order sum), so the
+    trained bandwidth keys the same basis.
+
+    Returns (result dict, params, model); the numbers are unrounded, the
+    timings host seconds around work that ends in a device synchronize.
+    ``epoch_s``: the seconds between the trainer's per-epoch records (the
+    first one also holds the outputscale normalization and the first
+    preconditioner build)."""
+    import os
+
+    import torch
+
+    from manifold_gp_torch.config import resolve_device
+    from manifold_gp_torch.ops.cg import cg_raw
+    from manifold_gp_torch.ops.graph import build_graph
+    from manifold_gp_torch.utils import (
+        MetricsRecorder,
+        cached_eval_basis,
+        cached_graph,
+        manifold_informed_train,
+        test_model,
+    )
+
+    device = resolve_device(device)
+    graph_rec = {}
+
+    def graph_builder(train_x, k_, dev):
+        backend, kw = campaign_graph_backend(train_x.shape[0], dev)
+        graph, hit = cached_graph(train_x, k_, cache_dir, knn_backend=backend, device=dev,
+                                  builder=lambda: build_graph(train_x, k_, device=dev, **kw))
+        graph_rec.update(graph_backend=backend, graph_cache_hit=hit)
+        return graph
+
+    camp = build_campaign(n=n, device=device, k=k, num_test=num_test, num_modes=num_modes,
+                          seed=seed, nu=nu, manifold=manifold, graph_builder=graph_builder)
+    model, kernel = camp.model, camp.model.kernel
+    timings = {**camp.timings, **graph_rec}
+    print(f"# graph[{graph_rec['graph_backend']}]: {timings['graph_build_s']:.2f}s "
+          f"cache_hit={graph_rec['graph_cache_hit']} M={camp.graph.num_edges}", file=sys.stderr)
+    params = model.init_params(**INITIAL_HYPERS)
+
+    def cg_iters(p):
+        # without a preconditioner, as examples/run_large.py counts them
+        with torch.no_grad():
+            _, it = cg_raw(model.precision_matvec(p), model.train_y, tol=model.cfg.cg_tolerance,
+                           max_iter=model.cfg.cg_max_iter, with_info=True)
+        return int(it)
+
+    timings["cg_iters_initial"] = cg_iters(params)
+    metrics = MetricsRecorder(path=metrics_path, verbose=False)
+    ckpt = os.path.join(cache_dir, f"campaign_{manifold}_{n}_{k}_{seed}_v2.ckpt.npz")
+    _sync(device)
+    t0, wall0 = time.perf_counter(), time.time()
+    params, loss, history = manifold_informed_train(
+        model, params, lr=lr, weight_decay=0.0, max_iter=epochs - 1, tolerance=1e-2,
+        num_rand_vec=100, verbose=verbose, seed=seed, metrics=metrics,
+        checkpoint_path=ckpt, checkpoint_every=checkpoint_every, resume=resume,
+        precond_refresh=precond_refresh, probes_fn=probes_fn, idx_fn=idx_fn)
+    _sync(device)
+    train_s = time.perf_counter() - t0
+    stamps = [wall0] + [row["time"] for row in metrics.history]
+    timings.update(train_s=train_s, s_per_epoch=train_s / max(epochs, 1),
+                   epoch_s=list(np.diff(stamps)))
+    timings["cg_iters_trained"] = cg_iters(params)
+    print(f"# trained {epochs} epochs in {train_s:.1f}s, final loss {loss:.4f}", file=sys.stderr)
+
+    t0 = time.perf_counter()
+    basis, bhit = cached_eval_basis(kernel, params, cache_dir)
+    _sync(device)
+    timings.update(basis_s=time.perf_counter() - t0, basis_cache_hit=bhit)
+    # test_model re-runs eval(): serve this basis instead of solving again
+    kernel.eval_basis = lambda p: basis
+    print(f"# basis: {timings['basis_s']:.2f}s cache_hit={bhit}", file=sys.stderr)
+    t0 = time.perf_counter()
+    rmse, nll = test_model(model, params, camp.test_x, camp.test_y, noisy_test=True)
+    _sync(device)
+    timings["eval_s"] = time.perf_counter() - t0
+    post = model.posterior(params, camp.test_x, noisy_posterior=False)
+    rmse_true = float(np.sqrt(np.mean((post.mean.cpu().numpy() - camp.test_y_true) ** 2)))
+    with torch.no_grad():
+        hypers = {"graphbandwidth_trained": float(kernel.graphbandwidth(params)),
+                  "lengthscale_trained": float(kernel.lengthscale(params)),
+                  "noise_trained": float(model.noise(params)),
+                  "outputscale_trained": float(model.outputscale(params))}
+    result = {
+        "metric": "campaign_rmse_vs_ground_truth",
+        "value": rmse_true,
+        "manifold": manifold,
+        "n": n,
+        "k": k,
+        "epochs": epochs,
+        "num_modes": num_modes,
+        "num_edges": int(camp.graph.num_edges),
+        "final_loss": float(loss),
+        "history": history,
+        **hypers,
+        "graphbandwidth_floor": camp.gb_min,
+        "rmse_noisy_test": rmse,
+        "nll_noisy_test": nll,
+        "noise_floor_rmse": camp.noise_floor_rmse,
+        **timings,
+    }
+    return result, params, model
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=262_144)
@@ -669,7 +855,23 @@ def main():
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
     ap.add_argument("--train", action="store_true",
                     help="train the hyperparameters instead of serving given ones")
-    ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("--campaign", action="store_true",
+                    help="run the full campaign cycle (run_campaign); implied by --cache-dir "
+                         "and --no-cache")
+    ap.add_argument("--k", type=int, default=None,
+                    help="neighbours (default: campaign 16, else the manifold's)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="campaign: graph/basis cache and checkpoint directory "
+                         "(default .mgp_cache)")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="campaign: a throwaway cache directory (forces rebuilds)")
+    ap.add_argument("--checkpoint-every", type=int, default=10)
+    ap.add_argument("--precond-refresh", type=int, default=10)
+    ap.add_argument("--no-resume", action="store_true")
+    ap.add_argument("--lr", type=float, default=1e-1)
+    ap.add_argument("--metrics", default=None, help="campaign: JSONL per-epoch metrics path")
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="default: campaign 50, --train 3")
     ap.add_argument("--eigensolver", choices=("lobpcg", "chebyshev", "host_f64"), default=None,
                     help="serve: the basis solver (default: the manifold's)")
     ap.add_argument("--love-rank", type=int, action="append", default=[],
@@ -678,16 +880,37 @@ def main():
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args()
     device = "cpu" if args.cpu else "cuda"
-    if args.train:
+    if args.campaign or args.cache_dir is not None or args.no_cache:
+        import shutil
+        import tempfile
+
+        cache_dir = args.cache_dir or ".mgp_cache"
+        if args.no_cache:
+            pathlib.Path(".mgp_cache").mkdir(exist_ok=True)
+            cache_dir = tempfile.mkdtemp(prefix="nocache_", dir=".mgp_cache")
+        try:
+            result, _, _ = run_campaign(
+                n=args.n, k=16 if args.k is None else args.k,
+                epochs=50 if args.epochs is None else args.epochs, num_test=args.num_test,
+                num_modes=100 if args.num_modes is None else args.num_modes,
+                cache_dir=cache_dir, checkpoint_every=args.checkpoint_every,
+                precond_refresh=args.precond_refresh, lr=args.lr, seed=args.seed,
+                verbose=args.verbose, resume=not args.no_resume, metrics_path=args.metrics,
+                manifold=args.manifold, device=device)
+        finally:
+            if args.no_cache:
+                shutil.rmtree(cache_dir, ignore_errors=True)
+    elif args.train:
         result, _, _ = train_campaign(
-            n=args.n, epochs=args.epochs, device=device, num_test=args.num_test,
+            n=args.n, epochs=3 if args.epochs is None else args.epochs, device=device,
+            k=args.k, num_test=args.num_test,
             num_modes=args.num_modes, seed=args.seed, verbose=args.verbose,
             manifold=args.manifold,
         )
     else:
         overrides = {} if args.eigensolver is None else {"eigensolver": args.eigensolver}
         result, _, _ = serve_campaign(
-            n=args.n, device=device, num_test=args.num_test,
+            n=args.n, device=device, k=args.k, num_test=args.num_test,
             num_modes=args.num_modes, seed=args.seed, manifold=args.manifold,
             love_ranks=tuple(args.love_rank), **overrides,
         )

@@ -159,22 +159,56 @@ def symmetrize_knn_edges(sqd, idx, num_nodes: int, x=None,
     return graph_from_edges(ur, uc, uv, n, device=device)
 
 
+def pin_self_match(sqd, idx):
+    """Put each row's self-match in column 0 of a self-query result that does
+    not pin it (host numpy; returns copies). The host search ranks by the
+    expanded form |q|^2 + |x|^2 - 2 q.x clamped at 0, so where two points
+    lie within f32 rounding of each other both distances are 0 and the other
+    point may come first; the entries before the self-match shift right by
+    one (a self-match pushed out of the k columns enters at 0)."""
+    sqd, idx = np.array(sqd), np.array(idx)
+    for r in np.flatnonzero(idx[:, 0] != np.arange(idx.shape[0])):
+        hit = np.flatnonzero(idx[r] == r)
+        j = hit[0] if hit.size else idx.shape[1] - 1
+        idx[r, 1:j + 1], sqd[r, 1:j + 1] = idx[r, :j].copy(), sqd[r, :j].copy()
+        idx[r, 0], sqd[r, 0] = r, 0.0
+    return sqd, idx
+
+
 def build_graph(x, nearest_neighbors: int, knn_backend: str = "device",
+                ivf_nlist: int = None, ivf_nprobe: int = None, ivf_kmeans_iters: int = 10,
                 device=None) -> SparseGraph:
-    """kNN graph with the reference's construction semantics. The search runs
-    on ``device`` (default: the device of ``x`` when it is a tensor, else
-    CUDA, which raises without a card); only the exact device search is
-    ported."""
-    if knn_backend != "device":
-        raise NotImplementedError(
-            f"build_graph(knn_backend={knn_backend!r}): only the exact "
-            "'device' search is ported (host and IVF backends: ROADMAP queue 1, "
-            "'Large-N ancillaries')"
-        )
+    """kNN graph with the reference's construction semantics, on ``device``
+    (default: the device of ``x`` when it is a tensor, else CUDA, which
+    raises without a card).
+
+    knn_backend: "device" runs the exact search on ``device``; "host" the
+    exact multithreaded brute force of the native host library
+    (``utils.native.knn_search_host``, its self-matches pinned to column 0
+    by ``pin_self_match``); "ivf" trains an inverted-file
+    quantizer on ``device`` and searches approximately. ``ivf_nlist`` /
+    ``ivf_nprobe`` override the IVF sizing (default: ``default_nlist(N)``
+    lists, nprobe max(16, nlist / 4))."""
+    if knn_backend not in ("device", "host", "ivf"):
+        raise ValueError(f"build_graph: unknown knn_backend {knn_backend!r}")
     if device is None:
         device = x.device if isinstance(x, torch.Tensor) else resolve_device("cuda")
+    if knn_backend == "host":
+        from ..utils.native import knn_search_host
+
+        xh = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+              else np.asarray(x)).astype(np.float32)
+        sqd, idx = pin_self_match(*knn_search_host(xh, xh, nearest_neighbors))
+        return symmetrize_knn_edges(sqd, idx, xh.shape[0], x=xh, device=device)
     xt = torch.as_tensor(x, dtype=torch.float32).to(device)
-    sqd, idx = knn_search(xt, xt, nearest_neighbors, self_query=True)
+    if knn_backend == "ivf":
+        from .knn import ivf_build, ivf_search
+
+        index = ivf_build(xt, nlist=ivf_nlist, kmeans_iters=ivf_kmeans_iters)
+        nprobe = ivf_nprobe if ivf_nprobe is not None else max(16, index.nlist // 4)
+        sqd, idx = ivf_search(index, xt, nearest_neighbors, nprobe=nprobe, self_query=True)
+    else:
+        sqd, idx = knn_search(xt, xt, nearest_neighbors, self_query=True)
     return symmetrize_knn_edges(
         sqd.cpu().numpy(), idx.cpu().numpy(), xt.shape[0],
         x=xt.cpu().numpy(), device=device,

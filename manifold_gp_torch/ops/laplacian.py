@@ -13,7 +13,9 @@ D^{+-1/2} (the transpose swaps the scalings). Execution paths with the same
 numerics: a pre-assembled dense L_sym, an RCM layout of
 ``ops.sparse_formats`` (block-ELL panels or DIA bands: a CUDA kernel or its
 plain version), or the ELL gather loop.
-Scatter-adds are ``index_add``; on CUDA their f32 sums run in atomic order.
+The per-node sums over incident edges (degrees, row sums) are gather-sums
+over the ELL table (``incident_sum``): unlike CUDA's ``index_add`` they sum
+in a fixed order, so they repeat bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -35,8 +37,36 @@ class LaplacianCoeffs(NamedTuple):
     weights: torch.Tensor  # [M] unnormalized edge weights w_e
 
 
-def _scatter_both(base, graph: SparseGraph, vals):
-    return base.index_add(0, graph.rows, vals).index_add(0, graph.cols, vals)
+class _IncidentSum(torch.autograd.Function):
+    """out_i = base_i + sum of vals_e over the edges e incident to node i.
+
+    The forward gathers each node's edge values from the ELL table into
+    [1 + D, N] (base first, then the slots) and reduces over the first axis
+    in one call: a fixed order on either device, where CUDA's ``index_add``
+    sums in atomic order, so a rerun repeats bit for bit. It equals
+    ``base.index_add(0, rows, vals).index_add(0, cols, vals)`` up to the
+    order of the f32 additions. The backward is the transposed gather
+    bar_vals_e = bar_out[row_e] + bar_out[col_e]."""
+
+    @staticmethod
+    def forward(ctx, graph, base, vals):
+        ctx.graph = graph
+        slots = torch.where(graph.ell_mask.T > 0, vals[graph.ell_edge.T], vals.new_zeros(()))
+        return torch.cat([base[None], slots]).sum(dim=0)
+
+    @staticmethod
+    def backward(ctx, g):
+        graph = ctx.graph
+        bar_vals = g[graph.rows] + g[graph.cols] if ctx.needs_input_grad[2] else None
+        return None, g, bar_vals
+
+
+def incident_sum(graph: SparseGraph, base: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """base [N] plus, for each node, the sum of the edge values vals [M] over
+    its incident edges; deterministic on every device (see _IncidentSum)."""
+    if base.shape != (graph.num_nodes,):
+        raise ValueError(f"incident_sum: base must be [{graph.num_nodes}], got {tuple(base.shape)}")
+    return _IncidentSum.apply(graph, base, vals)
 
 
 def laplacian_coeffs(graph: SparseGraph, graphbandwidth,
@@ -45,11 +75,11 @@ def laplacian_coeffs(graph: SparseGraph, graphbandwidth,
     eps2 = torch.square(gb.reshape(()))
     w = torch.exp(-graph.sqdist / (4.0 * eps2)) * graph.mask
     base = 1.0 if self_loops else 0.0
-    deg_unnorm = _scatter_both(torch.full((graph.num_nodes,), base, dtype=w.dtype,
-                                          device=w.device), graph, w)
+    deg_unnorm = incident_sum(graph, torch.full((graph.num_nodes,), base, dtype=w.dtype,
+                                          device=w.device), w)
     adj = w / (deg_unnorm[graph.rows] * deg_unnorm[graph.cols])
     deg0 = deg_unnorm**-2 if self_loops else torch.zeros_like(deg_unnorm)
-    deg = _scatter_both(deg0, graph, adj)
+    deg = incident_sum(graph, deg0, adj)
     if self_loops:
         diag = (1.0 - deg_unnorm**-2 / deg) / eps2
     else:
@@ -82,7 +112,7 @@ def adjacency_matvec_coo(graph: SparseGraph, triu: torch.Tensor, v: torch.Tensor
 def gershgorin_bound(graph: SparseGraph, coeffs: LaplacianCoeffs):
     """Upper bound on lambda_max(L_sym): max_i (diag_i + sum_j |offdiag_ij|),
     times 1.01."""
-    rowsum = _scatter_both(torch.zeros_like(coeffs.diag), graph, coeffs.triu.abs())
+    rowsum = incident_sum(graph, torch.zeros_like(coeffs.diag), coeffs.triu.abs())
     return torch.max(coeffs.diag + rowsum) * 1.01
 
 

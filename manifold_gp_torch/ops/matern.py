@@ -37,7 +37,7 @@ import torch
 
 from .block_sparse import BlockLayout
 from .graph import SparseGraph
-from .laplacian import LaplacianCoeffs, laplacian_matvec
+from .laplacian import LaplacianCoeffs, incident_sum, laplacian_matvec
 from .operator import Operator, as_operator
 
 _NORMALIZATIONS = ("randomwalk", "symmetric")
@@ -231,8 +231,7 @@ def matern_precision_diag(
         d = diag_a
     else:
         sq = torch.square(coeffs.triu)
-        off2 = torch.zeros_like(coeffs.diag).index_add(0, graph.rows, sq).index_add(
-            0, graph.cols, sq)
+        off2 = incident_sum(graph, torch.zeros_like(coeffs.diag), sq)
         diag_a2 = torch.square(diag_a) + off2
         d = diag_a2 if nu == 2 else torch.pow(diag_a2, 0.5 * nu)
     if normalization == "randomwalk":

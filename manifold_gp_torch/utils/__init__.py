@@ -1,3 +1,4 @@
+from .cache import cached_eval_basis, cached_graph, clear_cache
 from .checkpoint import load_params, load_training_state, save_params, save_training_state
 from .convert import (
     constrained_values,
@@ -14,11 +15,17 @@ from .datasets import (
     rotate_mnist,
 )
 from .evaluate import gaussian_nll, gaussian_nll_stochastic, test_model
+from .metrics import MetricsRecorder, phase_timer, profile_trace
+from .multistart import multi_start_train, random_restarts
 from .sampling import grid_uniform, sample_posterior
 from .train import ReduceLROnPlateau, manifold_informed_train, vanilla_train
 
 __all__ = [
+    "MetricsRecorder",
     "ReduceLROnPlateau",
+    "cached_eval_basis",
+    "cached_graph",
+    "clear_cache",
     "constrained_values",
     "gaussian_nll",
     "gaussian_nll_stochastic",
@@ -28,11 +35,15 @@ __all__ = [
     "manifold_1D_dataset",
     "manifold_2D_dataset",
     "manifold_informed_train",
+    "multi_start_train",
     "params_from_constrained",
     "params_from_jax",
     "params_to_numpy",
     "parse_msh",
     "parse_stl",
+    "phase_timer",
+    "profile_trace",
+    "random_restarts",
     "rmnist_dataset",
     "rotate_mnist",
     "sample_posterior",

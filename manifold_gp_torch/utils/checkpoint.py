@@ -6,13 +6,15 @@ arrays (no pickled objects): ``save_params`` / ``load_params`` for a params
 dict, ``save_training_state`` / ``load_training_state`` for the full
 resumable state of ``utils.train`` (params, Adam moments and step counts,
 scheduler state, learning rate, epoch, and the states of the two random
-generators).
-
-Not ported yet: the graph-cache helpers.
+generators). ``save_graph_cache`` / ``load_graph_cache`` keep a built graph
+(edge list and ELL table) under a content fingerprint (``array_fingerprint``),
+in the JAX package's file format (int32 indices).
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import pathlib
 
 import numpy as np
@@ -91,3 +93,62 @@ def load_training_state(path, device="cuda"):
         state["sched_state"] = (float(d["sched_best"]), int(d["sched_num_bad"]),
                                 int(d["sched_cooldown"]))
     return state
+
+
+def array_fingerprint(*arrays) -> str:
+    """sha256 over each array's shape, dtype and bytes (the JAX package's
+    fingerprint of the same numpy arrays)."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = _np(a)
+        h.update(str(a.shape).encode())
+        h.update(str(a.dtype).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def save_graph_cache(graph, cache_dir, fingerprint: str):
+    """Cache a built graph (edge list and ELL layout) as
+    ``graph_{fingerprint}.npz``, indices as int32."""
+    cache_dir = pathlib.Path(cache_dir)
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(
+        cache_dir / f"graph_{fingerprint}.npz",
+        rows=_np(graph.rows).astype(np.int32),
+        cols=_np(graph.cols).astype(np.int32),
+        sqdist=_np(graph.sqdist).astype(np.float32),
+        ell_edge=_np(graph.ell_edge).astype(np.int32),
+        ell_col=_np(graph.ell_col).astype(np.int32),
+        ell_mask=_np(graph.ell_mask).astype(np.float32),
+        meta=np.asarray(
+            json.dumps({"num_nodes": graph.num_nodes, "max_degree": graph.max_degree})
+        ),
+    )
+
+
+def load_graph_cache(cache_dir, fingerprint: str, device="cuda"):
+    """The graph saved by ``save_graph_cache`` (by either package) on
+    ``device``, indices as int64; None when there is no such entry."""
+    from ..ops.graph import SparseGraph
+
+    device = resolve_device(device)
+    path = pathlib.Path(cache_dir) / f"graph_{fingerprint}.npz"
+    if not path.exists():
+        return None
+    with np.load(path) as d:
+        meta = json.loads(str(d["meta"]))
+
+        def idx(name):
+            return torch.from_numpy(d[name].astype(np.int64)).to(device)
+
+        return SparseGraph(
+            rows=idx("rows"),
+            cols=idx("cols"),
+            sqdist=torch.from_numpy(d["sqdist"].astype(np.float32)).to(device),
+            mask=torch.ones(d["rows"].shape[0], dtype=torch.float32, device=device),
+            ell_edge=idx("ell_edge"),
+            ell_col=idx("ell_col"),
+            ell_mask=torch.from_numpy(d["ell_mask"].astype(np.float32)).to(device),
+            num_nodes=meta["num_nodes"],
+            max_degree=meta["max_degree"],
+        )

@@ -85,8 +85,12 @@ def test_graph_from_edges_rejects_bad_edge_lists():
 
 
 def test_unported_search_backends_raise(small_cloud):
+    """Every JAX search backend is ported ("device", "host", "ivf"; their
+    graphs are held in ``test_torch_ivf.py``): an unknown one raises, the
+    IVF index answers."""
     x, _ = small_cloud
-    with pytest.raises(NotImplementedError, match="IVF"):
-        tknn.NearestNeighbors(x, use_ivf=True)
-    with pytest.raises(NotImplementedError):
-        tgraph.build_graph(x, 5, knn_backend="ivf", device="cpu")
+    with pytest.raises(ValueError, match="knn_backend"):
+        tgraph.build_graph(x, 5, knn_backend="faiss", device="cpu")
+    nn = tknn.NearestNeighbors(x, use_ivf=True)
+    sqd, idx = nn.search(nn.x, 5)
+    assert idx.shape == (x.shape[0], 5) and (idx[:, 0] == torch.arange(x.shape[0])).all()

@@ -24,10 +24,6 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "manifold_gp_tpu", "sklearn")
 EXAMPLES = ("run_large", "run_spiral", "run_rmnist", "run_1d", "run_2d", "eval_pretrained",
             "reference_protocol", "profile_gradient")
-# utils names that wait for ROADMAP queue 1 item 6 steps 2-3 (caches,
-# metrics, multistart)
-UTILS_PENDING = {"cached_eval_basis", "cached_graph", "clear_cache", "MetricsRecorder",
-                 "phase_timer", "profile_trace", "multi_start_train", "random_restarts"}
 
 
 def test_import_leaves_no_jax_in_sys_modules():
@@ -85,13 +81,10 @@ def test_port_files_do_not_import_jax(path):
 @pytest.mark.parametrize("module", ["", ".ops", ".kernels", ".models", ".utils"])
 def test_port_exports_the_jax_public_names(module):
     """Every name of the JAX package's ``__all__`` (top level, ops, kernels,
-    models, utils) is an attribute of the port's module, except the utils
-    names that still wait for their port."""
+    models, utils) is an attribute of the port's module."""
     jax_mod = importlib.import_module("manifold_gp_tpu" + module)
     port_mod = importlib.import_module("manifold_gp_torch" + module)
-    pending = UTILS_PENDING if module == ".utils" else set()
-    assert pending <= set(jax_mod.__all__)
-    missing = [n for n in jax_mod.__all__ if n not in pending and not hasattr(port_mod, n)]
+    missing = [n for n in jax_mod.__all__ if not hasattr(port_mod, n)]
     assert not missing, missing
     assert not [n for n in port_mod.__all__ if not hasattr(port_mod, n)]
 
