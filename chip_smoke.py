@@ -190,6 +190,35 @@ Phases (any failure exits non-zero before the result line is printed):
      launch; then holds the forward kernel (B = 1, 64) and K3 (f32 out,
      B = 1, 64) to their plain versions at the cloud's layout, in its panel
      type, at the best restart's coefficients.
+  14. the row-sharded multi-GPU path (manifold_gp_torch.parallel) at world
+     size 1 over NCCL (a FileStore in a temporary directory): the
+     262,144-point torus at the campaign's training config (bf16 panels,
+     edge-space cotangents, 48 probes, Jacobi) on a mesh kernel and on the
+     single-device kernel, same graph, parameters and probes: loss within
+     1e-4 relative, gradients within 5e-3 of the largest; 3 epochs of
+     manifold_informed_train on the mesh, every loss finite, forward and K3
+     launches (counts reset just before, read just after); the mesh LOBPCG
+     basis (f32 panels, B = 100 and 300): eigenvalues of all 100 modes
+     within 2e-5 of the Gershgorin bound of one device's LOBPCG in the
+     mesh's padded row order from the same start block, and of the lowest
+     90 of one device's node-order basis (how far the row order alone moves
+     the top modes is printed); the posterior's RMSE vs truth below the
+     noise floor; prints gradient and epoch seconds mesh against one
+     device, the collectives per gradient and the peak memory;
+  14b. both block-ELL kernels at every shard layout of world size 4 (the
+     torus graph's tables built in one process, no collective): the forward
+     kernel (bf16 panels at B = 1, 48 and 100, f32 at B = 100 and 300) and
+     K3 (f32 out, B = 1 and 48) on each shard's panels and exchanged window
+     against their plain versions, the stacked shards against the
+     single-device product (K3 on the used panel slots);
+  14a. world size 2 as two spawned processes sharing the card over gloo
+     (the kernels built in phase 1; no rank builds): the 16,384-point torus
+     on the fused mesh path; first, in this process, both kernels at its
+     two shard layouts as in 14b; then loss and gradients against one
+     device at phase 14's tolerances, the halo and gather exchanges within
+     1e-6, parameters bit-identical on both ranks after 3 epochs, the
+     LOBPCG basis as in phase 14; a rank that fails or passes 300 s fails
+     the phase (the children are killed).
 Then one JSON line with the kernel table, and the last line
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -1211,6 +1240,554 @@ def production_campaign(dev) -> tuple:
     return report, paths
 
 
+MESH_LOSS_RTOL = 1e-4  # phase 14/14a: mesh loss vs one device (the parity pins' tolerance)
+MESH_GRAD_RTOL = 5e-3  # of the largest gradient (the parity pins' tolerance)
+MESH_EIG_TOL = 2e-5  # of the Gershgorin bound: mesh LOBPCG eigenvalues, all 100 modes,
+# vs one device's LOBPCG in the mesh's padded row order (``row_order_witness``); vs one
+# device's node-order basis on the lowest MESH_EIG_MODES: the block's top modes still
+# rotate after 200 iterations (phase 3L reads them up to 9 % off Chebyshev's), and the
+# witness gives how far the row order alone moves them (printed)
+MESH_EIG_MODES = 90
+MESH_EXCHANGE_RTOL = 1e-6  # phase 14a: halo vs gather exchange, loss
+MESH_WS2_N = 16_384  # phase 14a: the torus size two processes share the card at
+MESH_RANK_TIMEOUT_S = 300  # phase 14a: a rank that passes this fails the phase
+MESH_SHARDS = 4  # phase 14b: the world size whose shard layouts are held
+# the widths the mesh paths run each kernel at: training's bf16 forward at B = 1
+# (the mean solve), 48 (the probes) and 100 (the average variance), the basis's f32
+# forward at B = 100 and 300, and K3 (f32 out) at B = 1 and 48
+MESH_FWD_WIDTHS = {"bfloat16": (1, 48, 100), "float32": (100, 300)}
+MESH_BWD_WIDTHS = (1, 48)
+
+
+def _mesh_rank_ws2(rank: int, world_size: int, workdir: str):
+    """One rank of phase 14a (started by torch.multiprocessing, spawn): the
+    16,384-point torus on a gloo mesh of ``world_size`` processes sharing
+    the card; writes its numbers to ``workdir``/rank<r>.json."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from examples_torch.run_large import CAMPAIGN_HYPERS, INITIAL_HYPERS, loss_and_grad
+    from manifold_gp_torch import InferenceConfig, RiemannGP, RiemannMaternKernel
+    from manifold_gp_torch.ops import cuda_spmv
+    from manifold_gp_torch.ops.graph import graph_from_edges
+    from manifold_gp_torch.parallel import init_distributed, make_mesh
+    from manifold_gp_torch.parallel.block_spmv import (
+        exchange_name,
+        make_sharded_matern_precision_matvec_fused,
+    )
+    from manifold_gp_torch.parameters import GreaterThan
+    from manifold_gp_torch.utils import manifold_informed_train
+
+    work = pathlib.Path(workdir)
+    init_distributed(backend="gloo", init_method=f"file://{work / 'store'}",
+                     world_size=world_size, rank=rank, timeout_s=120)
+    mesh = make_mesh(device="cuda")
+    data = np.load(work / "inputs.npz")
+    spec = json.loads((work / "spec.json").read_text())
+    cfg = InferenceConfig(**spec["cfg"])
+    graph = graph_from_edges(data["rows"], data["cols"], data["sqdist"], int(data["n"]),
+                             device=mesh.device)
+    kernel = RiemannMaternKernel(
+        nu=2, x=data["x"], nearest_neighbors=spec["k"], laplacian_normalization="randomwalk",
+        num_modes=spec["num_modes"], bump_scale=10.0, cfg=cfg, graph=graph,
+        graphbandwidth_constraint=GreaterThan(spec["gb_min"]), mesh=mesh)
+    model = RiemannGP(data["x"], data["y"], kernel, cfg=cfg)
+    probes = torch.from_numpy(data["probes"]).to(mesh.device)
+    out = {"rank": rank, "device": str(mesh.device), "halo": kernel._mesh_fused.halo}
+    def gather_operator(params, coeffs=None, permuted_io=False):
+        # the kernel's fused mesh operator, with the whole-vector gather exchange
+        c = kernel.coeffs(params) if coeffs is None else coeffs
+        return make_sharded_matern_precision_matvec_fused(
+            kernel._mesh_fused, c, kernel.nu, kernel.lengthscale(params),
+            kernel.laplacian_normalization,
+            dtype=torch.bfloat16 if cfg.spmv_dtype == "bfloat16" else None,
+            grad_space=cfg.solve_cotangent, exchange="gather")
+
+    cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = 0
+    t0 = time.perf_counter()
+    for exchange in ("auto", "gather"):
+        if exchange == "gather":
+            kernel.precision_matvec = gather_operator
+        value, grads = loss_and_grad(model, model.init_params(**INITIAL_HYPERS), probes=probes)
+        out[exchange] = {"exchange": exchange_name(kernel._mesh_fused, exchange),
+                         "loss": value, "grads": grads}
+    del kernel.precision_matvec  # back to the class's operator
+    params, _, history = manifold_informed_train(
+        model, model.init_params(**INITIAL_HYPERS), lr=0.1, max_iter=2, tolerance=1e-2,
+        num_rand_vec=100, seed=0)
+    out["history"] = history
+    out["param_bits"] = {k: np.asarray(v.detach().cpu().numpy(), np.float32).view(
+        np.uint32).tolist() for k, v in params.items()}
+    kernel.cfg = cfg.replace(eigensolver="lobpcg")
+    eigval, _ = kernel.eval_basis(kernel.init_params(
+        graphbandwidth=CAMPAIGN_HYPERS["graphbandwidth"],
+        lengthscale=CAMPAIGN_HYPERS["lengthscale"]))
+    torch.cuda.synchronize()
+    out["eigval"] = eigval.cpu().numpy().tolist()
+    out["seconds"] = time.perf_counter() - t0
+    out["forward_launches"] = cuda_spmv.launch_count
+    out["bwd_blocks_launches"] = cuda_spmv.bwd_launch_count
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _grad_gap(grads, ref):
+    """max |grad - ref| over the parameters, over max |ref|."""
+    keys = [k for k, v in ref.items() if v is not None]
+    scale = max(abs(ref[k]) for k in keys)
+    return max(abs(grads[k] - ref[k]) for k in keys) / max(scale, 1e-30)
+
+
+def _shard_window(tables, sh, pv):
+    """Rank ``sh.rank``'s exchanged window of the global padded operand
+    ``pv`` [rows, B] (as ``parallel.block_spmv._exchange`` builds it), its
+    block ids and its column-block count."""
+    import torch
+
+    from manifold_gp_torch.ops.block_sparse import BLOCK
+
+    if tables.halo is None:
+        return pv, sh.block_col, tables.nrb
+    own = pv[sh.row_lo:sh.row_lo + sh.lrows]
+    if tables.ndev == 1 or tables.halo == 0:
+        return own, sh.block_col_halo, sh.window_blocks
+    width = tables.halo * BLOCK
+    rows = torch.arange(-width, 0, device=pv.device) + sh.row_lo
+    left = pv[rows % tables.rows]
+    right = pv[(torch.arange(width, device=pv.device) + sh.row_lo + sh.lrows) % tables.rows]
+    return torch.cat([left, own, right]).contiguous(), sh.block_col_halo, sh.window_blocks
+
+
+def hold_shard_layouts(kernel, params, world_size: int, seed: int) -> tuple:
+    """Both block-ELL kernels at every shard layout of ``world_size`` for a
+    single-device kernel's graph (tables built in this process, no
+    collective): the forward kernel at the mesh paths' panel types and
+    widths (``MESH_FWD_WIDTHS``) and K3 (f32 out, ``MESH_BWD_WIDTHS``) on
+    each shard's panels and exchanged window against their plain versions,
+    and the stacked shards against the single-device product (K3 on the
+    used panel slots). Returns the tables and the records; fails on a
+    mismatch."""
+    import numpy as np
+    import torch
+
+    from manifold_gp_torch.ops import cuda_spmv
+    from manifold_gp_torch.ops.block_sparse import assemble, permute_in
+    from manifold_gp_torch.parallel import mesh as pmesh
+    from manifold_gp_torch.parallel.block_spmv import (
+        _local_bwd_blocks,
+        _local_matvec,
+        assemble_sharded,
+        build_mesh_block_tables,
+        shard_tables,
+    )
+
+    dev = kernel.device
+    layout = kernel.block_layout
+    n = kernel.graph.num_nodes
+    tables = build_mesh_block_tables(
+        kernel.graph, pmesh.Mesh(group=None, rank=0, world_size=world_size, device=dev))
+    shards = [tables.local] + [shard_tables(tables, r) for r in range(1, world_size)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tag = f"ws={world_size}"
+    records = []
+
+    def embed(v):
+        out = torch.zeros((tables.rows, v.shape[1]), device=dev)
+        out[tables.row_of_node] = v
+        return out
+
+    def held(label, got, want):
+        scale = float(want.abs().max())
+        rel = float((got.float() - want.float()).abs().max()) / max(scale, 1e-30)
+        ok = bool(torch.isfinite(got).all()) and rel <= SMALL_TOL
+        print(f"  {tag} {label:<44} max_rel_err={rel:.3e} (threshold {SMALL_TOL:.0e}) "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"shard layouts {tag}: {label} rel={rel}")
+        return rel
+
+    with torch.no_grad():
+        c = kernel.coeffs(params)
+        for dtype, widths in ((torch.bfloat16, MESH_FWD_WIDTHS["bfloat16"]),
+                              (None, MESH_FWD_WIDTHS["float32"])):
+            name = "float32" if dtype is None else "bfloat16"
+            whole = assemble(layout, c.diag, c.triu, dtype=dtype)
+            for batch in widths:
+                v = torch.randn((n, batch), generator=gen, device=dev)
+                pv = embed(v)
+                want_all = cuda_spmv.block_matvec(layout, whole, permute_in(layout, v).contiguous())
+                outs = []
+                for sh in shards:
+                    panels = assemble_sharded(tables, c.diag, c.triu, dtype=dtype, shard=sh)
+                    window, ids, ncb = _shard_window(tables, sh, pv)
+                    got = _local_matvec(tables, ids, panels, window, ncb)
+                    want = cuda_spmv.block_matvec_plain(ids, panels, window, s_max=tables.s_max)
+                    rel = held(f"shard {sh.rank} forward {name} B={batch}", got, want)
+                    records.append({"world_size": world_size, "kernel": "forward",
+                                    "shard": sh.rank, "panels": name, "batch": batch,
+                                    "max_rel_err": rel})
+                    outs.append(got)
+                    del panels, want
+                stacked = torch.cat(outs)[:layout.num_padded]
+                records.append({"world_size": world_size, "kernel": "forward",
+                                "shard": "stacked", "panels": name, "batch": batch,
+                                "max_rel_err": held(f"stacked vs one device {name} B={batch}",
+                                                    stacked, want_all)})
+                del outs, stacked, want_all
+            del whole
+        # K3 writes every slot; a short row's unused slots (zero panel
+        # columns, discarded by assembly's transpose) read other operand
+        # blocks in a shard's window than on one device: held on used slots
+        bc = tables.block_col_np
+        used = np.ones(bc.shape, bool)
+        used[:, 1:] = np.diff(bc, axis=1) > 0
+        used = np.cumprod(used, axis=1).astype(bool)
+        slot_mask = torch.from_numpy(np.repeat(used, 128, axis=1)).to(dev)[:, None, :]
+        for batch in MESH_BWD_WIDTHS:
+            v = torch.randn((n, batch), generator=gen, device=dev)
+            pv = embed(v)
+            g = torch.randn((tables.rows, batch), generator=gen, device=dev)
+            want_all = cuda_spmv.block_bwd_blocks(layout, g[:layout.num_padded].contiguous(),
+                                                  permute_in(layout, v).contiguous())
+            for sh in shards:
+                window, ids, ncb = _shard_window(tables, sh, pv)
+                gl = g[sh.row_lo:sh.row_lo + sh.lrows]
+                got = _local_bwd_blocks(tables, ids, gl, window, ncb, torch.float32)
+                want = cuda_spmv.bwd_blocks_plain(ids, gl.contiguous(), window,
+                                                  s_max=tables.s_max)
+                rel = held(f"shard {sh.rank} K3 float32 B={batch}", got, want)
+                lo_b = sh.row_lo // 128
+                hi_b = min(lo_b + sh.lrb, layout.num_row_blocks)
+                if hi_b > lo_b:
+                    keep = slot_mask[lo_b:hi_b]
+                    held(f"shard {sh.rank} K3 vs one device (used slots) B={batch}",
+                         got[:hi_b - lo_b] * keep, want_all[lo_b:hi_b] * keep)
+                records.append({"world_size": world_size, "kernel": "K3", "shard": sh.rank,
+                                "batch": batch, "max_rel_err": rel})
+                del got, want
+            del want_all
+    return tables, records
+
+
+def row_order_witness(kernel, params, tables):
+    """Eigenvalues of one-device LOBPCG on ``kernel``'s own operator (its
+    single-device SpMV) taken in ``tables``' padded row order, padding rows
+    pinned at the Gershgorin bound, from the single-device start block
+    embedded there: the mesh basis's row order and start, without its
+    sharded SpMV or its collectives. Read against the node-order basis, it
+    shows how far the row order alone moves each mode."""
+    import torch
+
+    from manifold_gp_torch.kernels.riemann import _matrix_free_smallest
+    from manifold_gp_torch.ops.block_sparse import assemble
+    from manifold_gp_torch.ops.laplacian import gershgorin_bound, laplacian_matvec
+
+    dev = kernel.device
+    ron = tables.row_of_node
+    with torch.no_grad():
+        c = kernel.coeffs(params)
+        bound = gershgorin_bound(kernel.graph, c)
+        block = (kernel.block_layout, assemble(kernel.block_layout, c.diag, c.triu))
+        mask = torch.from_numpy(tables.row_mask_np).to(dev)[:, None]
+
+        def embed(v):
+            out = v.new_zeros((tables.rows,) + tuple(v.shape[1:]))
+            out[ron] = v
+            return out
+
+        def mv(v):
+            lv = laplacian_matvec(kernel.graph, c, v[ron], "symmetric", block=block)
+            return mask * embed(lv) + bound * (1.0 - mask) * v
+
+        n = kernel.graph.num_nodes
+        eigval, _ = _matrix_free_smallest(kernel.cfg, mv, n, min(kernel.num_modes, n), bound,
+                                          dev, embed=embed)
+        eigval = eigval.clone()
+        eigval[0] = 0.0
+    return eigval, float(bound)
+
+
+def mesh_phases(dev, smi_line) -> tuple:
+    """Phases 14, 14a and 14b: the row-sharded multi-GPU path of
+    ``manifold_gp_torch.parallel`` at world size 1 over NCCL (full width),
+    at world size 2 as two gloo processes sharing the card, and the two
+    block-ELL kernels at every shard layout of world size 4. Returns their
+    report entries and the kernels line's launch counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as tmp
+
+    from examples_torch.run_large import (
+        CAMPAIGN_HYPERS,
+        INITIAL_HYPERS,
+        EpochLog,
+        build_campaign,
+        loss_and_grad,
+        mesh_twin,
+        rademacher_numpy,
+    )
+    from manifold_gp_torch.ops import cuda_spmv
+    from manifold_gp_torch.parallel import init_distributed, make_mesh
+    from manifold_gp_torch.parallel import mesh as pmesh
+    from manifold_gp_torch.parallel.block_spmv import exchange_name
+    from manifold_gp_torch.utils import manifold_informed_train
+
+    report = {}
+    # -- phase 14: the mesh path at world size 1 over NCCL ---------------------
+    print("== phase 14: the 262,144-point torus on a mesh kernel, world size 1 over NCCL")
+    print(f"  {smi_line}")
+    t_phase = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="mgp_mesh_")
+    init_distributed(backend="nccl", init_method=f"file://{store}/store", world_size=1, rank=0,
+                     timeout_s=120)
+    mesh = make_mesh(device=str(dev))
+    camp = build_campaign(n=CAMPAIGN_N, device=dev, precond_type="jacobi")
+    single = camp.model
+    t0 = time.perf_counter()
+    twin = mesh_twin(camp, mesh, precond_type="jacobi")
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    tables = twin.kernel._mesh_fused
+    if tables is None:
+        fail("phase 14: the torus did not take the fused mesh layout")
+    n = single.num_data
+    probes = torch.from_numpy(rademacher_numpy(14, n, camp.cfg.num_probes)).to(dev)
+
+    def timed_grad(model):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loss_and_grad(model, model.init_params(**INITIAL_HYPERS), probes=probes)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (v1, g1), _ = timed_grad(single)
+    (v1, g1), grad_s_single = timed_grad(single)
+    # the mesh's main path: counts to 0 just before, read just after
+    cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = 0
+    pmesh.collective_counts.clear()
+    (vm, gm), _ = timed_grad(twin)
+    per_grad = dict(pmesh.collective_counts)
+    (vm, gm), grad_s_mesh = timed_grad(twin)
+    torch.cuda.reset_peak_memory_stats(dev)
+    log = EpochLog()
+    _, _, history = manifold_informed_train(
+        twin, twin.init_params(**INITIAL_HYPERS), lr=0.1, max_iter=CAMPAIGN_EPOCHS - 1,
+        tolerance=1e-2, num_rand_vec=100, seed=0, metrics=log)
+    torch.cuda.synchronize()
+    mesh_peak = int(torch.cuda.max_memory_allocated(dev))
+    mesh_train = {"forward": cuda_spmv.launch_count, "bwd_blocks": cuda_spmv.bwd_launch_count}
+    log1 = EpochLog()
+    manifold_informed_train(single, single.init_params(**INITIAL_HYPERS), lr=0.1,
+                            max_iter=CAMPAIGN_EPOCHS - 1, tolerance=1e-2, num_rand_vec=100,
+                            seed=0, metrics=log1)
+    loss_rel = abs(vm - v1) / abs(v1)
+    grad_rel = _grad_gap(gm, g1)
+    epoch_mesh = float(np.median([r["seconds"] for r in log.rows]))
+    epoch_single = float(np.median([r["seconds"] for r in log1.rows]))
+    print(f"  tables {tables_s:.2f} s (S={tables.s_max}, row blocks {tables.nrb}, halo "
+          f"{tables.halo}); loss mesh {vm:.7f} vs one device {v1:.7f} (rel {loss_rel:.2e}, "
+          f"threshold {MESH_LOSS_RTOL:.0e}); gradients {grad_rel:.2e} of the largest "
+          f"(threshold {MESH_GRAD_RTOL:.0e})")
+    print(f"  gradient {grad_s_mesh:.4f} s mesh vs {grad_s_single:.4f} s one device; epoch "
+          f"{epoch_mesh:.4f} s vs {epoch_single:.4f} s (median of {CAMPAIGN_EPOCHS}); "
+          f"collectives per gradient {per_grad}; peak memory {mesh_peak / 2**30:.2f} GiB")
+    print(f"  mesh epochs: {history}; launches forward {mesh_train['forward']}, K3 "
+          f"{mesh_train['bwd_blocks']}")
+    if not loss_rel <= MESH_LOSS_RTOL or not grad_rel <= MESH_GRAD_RTOL:
+        fail("phase 14: the mesh loss or gradients differ from one device's")
+    if not np.isfinite(history).all():
+        fail("phase 14: a non-finite mesh training loss")
+    if min(mesh_train.values()) <= 0:
+        fail("phase 14: a kernel of the mesh training path was never launched")
+
+    # serve: LOBPCG (f32 panels, B = 100 and 300) on both kernels
+    params_t = twin.init_params(**CAMPAIGN_HYPERS)
+    twin.kernel.cfg = twin.kernel.cfg.replace(eigensolver="lobpcg")
+    single.kernel.cfg = single.kernel.cfg.replace(eigensolver="lobpcg")
+    cuda_spmv.launch_count = 0
+    cuda_spmv.launch_count_by_batch.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    basis_m = twin.kernel.eval_basis(params_t)
+    torch.cuda.synchronize()
+    basis_s_mesh = time.perf_counter() - t0
+    mesh_serve = {"forward": cuda_spmv.launch_count,
+                  "forward_by_batch": {str(b): c for b, c in
+                                       sorted(cuda_spmv.launch_count_by_batch.items())}}
+    t0 = time.perf_counter()
+    basis_1 = single.kernel.eval_basis(params_t)
+    torch.cuda.synchronize()
+    basis_s_single = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eig_w, bound = row_order_witness(single.kernel, params_t, tables)
+    torch.cuda.synchronize()
+    witness_s = time.perf_counter() - t0
+    gaps = (torch.abs(basis_m[0] - basis_1[0]) / bound).cpu().numpy()
+    gaps_w = (torch.abs(basis_m[0] - eig_w) / bound).cpu().numpy()
+    order_gaps = (torch.abs(eig_w - basis_1[0]) / bound).cpu().numpy()
+    eig_gap = float(gaps.max())
+    worst = np.argsort(gaps)[::-1][:5]
+    twin.kernel.eval_basis = lambda p: basis_m
+    twin.eval(params_t)
+    post = twin.posterior(params_t, camp.test_x)
+    mean = post.mean.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((mean - camp.test_y_true) ** 2)))
+    print(f"  LOBPCG basis {basis_s_mesh:.2f} s mesh vs {basis_s_single:.2f} s one device; "
+          f"eigenvalues at most {eig_gap:.2e} of the bound apart; "
+          f"forward launches {mesh_serve['forward_by_batch']}; RMSE vs truth {rmse:.6f} "
+          f"(noise floor {camp.noise_floor_rmse:.4f})")
+    held_gap = float(gaps[:MESH_EIG_MODES].max())
+    print(f"  vs one device in node order: largest gaps (of the bound {bound:.4f}) at modes "
+          f"{worst.tolist()}: {gaps[worst].tolist()}; modes 0-{MESH_EIG_MODES - 1}: "
+          f"{held_gap:.2e} (threshold {MESH_EIG_TOL:.0e})")
+    print(f"  vs one device in the mesh's row order ({witness_s:.2f} s): all modes "
+          f"{gaps_w.max():.2e} (threshold {MESH_EIG_TOL:.0e}); the row order alone moves "
+          f"modes {MESH_EIG_MODES}-99 by {order_gaps[MESH_EIG_MODES:].tolist()}, modes "
+          f"0-{MESH_EIG_MODES - 1} by at most {order_gaps[:MESH_EIG_MODES].max():.2e}")
+    basis_ok = held_gap <= MESH_EIG_TOL and gaps_w.max() <= MESH_EIG_TOL
+    if not (np.isfinite(mean).all() and rmse < camp.noise_floor_rmse):
+        fail("phase 14: the mesh posterior is not below the noise floor")
+    if mesh_serve["forward"] <= 0:
+        fail("phase 14: the forward kernel was never launched serving on the mesh")
+    report["mesh_ws1"] = {
+        "n": CAMPAIGN_N, "tables_s": tables_s, "max_blocks": tables.s_max,
+        "num_row_blocks": tables.nrb, "halo": tables.halo, "loss_mesh": vm,
+        "loss_single": v1, "loss_rel": loss_rel, "grad_rel_of_max": grad_rel,
+        "grad_s_mesh": grad_s_mesh, "grad_s_single": grad_s_single,
+        "epoch_s_mesh": epoch_mesh, "epoch_s_single": epoch_single,
+        "epoch_log": log.rows, "collectives_per_gradient": per_grad,
+        "peak_mem_bytes": mesh_peak, "train_launches": mesh_train,
+        "basis_s_mesh": basis_s_mesh, "basis_s_single": basis_s_single,
+        "eig_gap_of_bound": eig_gap, "eig_gaps_of_bound": gaps.tolist(),
+        "eig_gaps_vs_row_order_witness": gaps_w.tolist(),
+        "row_order_gaps_of_bound": order_gaps.tolist(), "witness_s": witness_s,
+        "serve_launches": mesh_serve, "rmse_vs_truth": rmse,
+        "noise_floor_rmse": camp.noise_floor_rmse, "seconds": time.perf_counter() - t_phase,
+        "card": smi_line,
+    }
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(store, ignore_errors=True)
+
+    # -- phase 14b: both kernels at every shard layout of world size 4 ---------
+    print(f"== phase 14b: K1 and K3 at the {MESH_SHARDS} shard layouts of the torus")
+    t0 = time.perf_counter()
+    tables4, records = hold_shard_layouts(single.kernel, params_t, MESH_SHARDS, seed=141)
+    torch.cuda.empty_cache()
+    report["mesh_shards"] = {"world_size": MESH_SHARDS, "halo": tables4.halo,
+                             "num_row_blocks": tables4.nrb, "exchange": exchange_name(tables4),
+                             "records": records, "seconds": time.perf_counter() - t0}
+    del tables4
+
+    # -- phase 14a: world size 2, two processes sharing the card, gloo ---------
+    print(f"== phase 14a: world size 2 over gloo, two processes on the one card, "
+          f"{MESH_WS2_N:,}-point torus")
+    t0 = time.perf_counter()
+    camp2 = build_campaign(n=MESH_WS2_N, device=dev, precond_type="jacobi")
+    ref = camp2.model
+    n2 = ref.num_data
+    probes2 = rademacher_numpy(142, n2, camp2.cfg.num_probes)
+    v_ref, g_ref = loss_and_grad(ref, ref.init_params(**INITIAL_HYPERS),
+                                 probes=torch.from_numpy(probes2).to(dev))
+    ref.kernel.cfg = ref.kernel.cfg.replace(eigensolver="lobpcg")
+    pref = ref.init_params(**CAMPAIGN_HYPERS)
+    eig_ref = ref.kernel.eval_basis(pref)[0].cpu().numpy()
+    # both kernels at the two ranks' shard layouts, and the basis's row-order witness
+    tables2, records2 = hold_shard_layouts(ref.kernel, pref, 2, seed=143)
+    eig_w2, bound2 = row_order_witness(ref.kernel, pref, tables2)
+    eig_w2 = eig_w2.cpu().numpy()
+    del tables2
+    work = pathlib.Path(tempfile.mkdtemp(prefix="mgp_ws2_"))
+    g2 = camp2.graph
+    np.savez(work / "inputs.npz", rows=g2.rows.cpu().numpy(), cols=g2.cols.cpu().numpy(),
+             sqdist=g2.sqdist.cpu().numpy(), n=g2.num_nodes,
+             x=ref.kernel.x.cpu().numpy(), y=ref.train_y.cpu().numpy(), probes=probes2)
+    import dataclasses as _dc
+
+    (work / "spec.json").write_text(json.dumps({
+        "cfg": _dc.asdict(camp2.cfg), "k": ref.kernel.nearest_neighbors,
+        "num_modes": ref.kernel.num_modes, "gb_min": camp2.gb_min}))
+    del camp2, ref
+    torch.cuda.empty_cache()
+    ctx = tmp.start_processes(_mesh_rank_ws2, args=(2, str(work)), nprocs=2, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                fail(f"phase 14a: a rank passed {MESH_RANK_TIMEOUT_S} s")
+    except Exception as exc:  # a rank raised: ProcessRaisedException / ProcessExitedException
+        fail(f"phase 14a: a rank failed: {exc}")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(5)
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    shutil.rmtree(work, ignore_errors=True)
+    checks = []
+    for r in ranks:
+        halo, gath = r["auto"], r["gather"]
+        lrel = abs(halo["loss"] - v_ref) / abs(v_ref)
+        grel = _grad_gap(halo["grads"], g_ref)
+        xrel = abs(halo["loss"] - gath["loss"]) / abs(halo["loss"])
+        egaps = np.abs(np.asarray(r["eigval"]) - eig_ref) / bound2
+        egap = float(egaps[:MESH_EIG_MODES].max())
+        wgap = float((np.abs(np.asarray(r["eigval"]) - eig_w2) / bound2).max())
+        print(f"  rank {r['rank']} largest eigenvalue gaps at modes "
+              f"{np.argsort(egaps)[::-1][:5].tolist()}: {np.sort(egaps)[::-1][:5].tolist()}; "
+              f"all modes vs one device in the mesh's row order {wgap:.2e} (threshold "
+              f"{MESH_EIG_TOL:.0e})")
+        checks.append({"rank": r["rank"], "loss_rel": lrel, "grad_rel_of_max": grel,
+                       "exchange_rel": xrel, "eig_gap_of_bound": egap,
+                       "eig_gap_vs_row_order_witness": wgap,
+                       "exchanges": [halo["exchange"], gath["exchange"]], "halo": r["halo"],
+                       "seconds": r["seconds"], "forward_launches": r["forward_launches"],
+                       "bwd_blocks_launches": r["bwd_blocks_launches"]})
+        print(f"  rank {r['rank']} ({r['device']}): loss {halo['loss']:.7f} vs one device "
+              f"{v_ref:.7f} (rel {lrel:.2e}); gradients {grel:.2e} of the largest; exchanges "
+              f"{halo['exchange']} (halo {r['halo']}) vs {gath['exchange']}: rel {xrel:.2e} "
+              f"(threshold {MESH_EXCHANGE_RTOL:.0e}); eigenvalues {egap:.2e} of the bound; "
+              f"{r['seconds']:.1f} s; launches forward {r['forward_launches']} K3 "
+              f"{r['bwd_blocks_launches']}")
+        if not (lrel <= MESH_LOSS_RTOL and grel <= MESH_GRAD_RTOL):
+            fail(f"phase 14a: rank {r['rank']}'s loss or gradients differ from one device's")
+        if not xrel <= MESH_EXCHANGE_RTOL:
+            fail(f"phase 14a: rank {r['rank']}'s halo and gather losses differ")
+        basis_ok = basis_ok and egap <= MESH_EIG_TOL and wgap <= MESH_EIG_TOL
+        if not np.isfinite(r["history"]).all():
+            fail(f"phase 14a: rank {r['rank']} trained to a non-finite loss")
+    same = ranks[0]["param_bits"] == ranks[1]["param_bits"] and \
+        ranks[0]["auto"]["loss"] == ranks[1]["auto"]["loss"]
+    print(f"  parameters after 3 Adam epochs bit-identical on both ranks: {same}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        fail("phase 14a: the two ranks' parameters differ")
+    ws2 = {"forward": sum(r["forward_launches"] for r in ranks),
+           "bwd_blocks": sum(r["bwd_blocks_launches"] for r in ranks)}
+    if min(ws2.values()) <= 0:
+        fail("phase 14a: a kernel of the world-size-2 path was never launched")
+    report["mesh_ws2"] = {"n": MESH_WS2_N, "ranks": checks, "params_identical": same,
+                          "loss_single": v_ref, "shard_records": records2,
+                          "seconds": time.perf_counter() - t0}
+    if not basis_ok:
+        fail("phase 14: the mesh basis differs from one device's")
+    paths = {
+        "forward": {"mesh_train": mesh_train["forward"], "mesh_serve": mesh_serve["forward"],
+                    "mesh_serve_by_batch": mesh_serve["forward_by_batch"],
+                    "mesh_ws2": ws2["forward"]},
+        "bwd_blocks": {"mesh_train": mesh_train["bwd_blocks"],
+                       "mesh_ws2": ws2["bwd_blocks"]},
+        "required": [mesh_train["forward"], mesh_train["bwd_blocks"], mesh_serve["forward"],
+                     ws2["forward"], ws2["bwd_blocks"]],
+    }
+    return report, paths
+
+
 def edge_keys(graph):
     """A graph's edges as sorted int64 keys row * N + col."""
     import numpy as np
@@ -2205,12 +2782,15 @@ def main():
     report.update(ref_report)
     prod_report, prod_paths = production_campaign(dev)
     report.update(prod_report)
+    mesh_report, mesh_paths = mesh_phases(dev, smi_line)
+    report.update(mesh_report)
 
     # -- result --------------------------------------------------------------
     f32 = main[0]
     bwd = next(r for r in main_bwd if r["batch"] == 48 and r["out_dtype"] == "float32")
     if min(launches, lobpcg_launches, train_fwd, train_bwd, curve_counts["dia_launches"],
-           spiral_fwd, spiral_bwd, *ref_paths["required"], *prod_paths["required"]) <= 0:
+           spiral_fwd, spiral_bwd, *ref_paths["required"], *prod_paths["required"],
+           *mesh_paths["required"]) <= 0:
         fail("a kernel of a main path was never launched on it")
     kernels = [{
         "name": "block_ell_spmv",
@@ -2227,7 +2807,7 @@ def main():
                 "spmv_launches"],
             "spiral_semisup": spiral_fwd, "spiral_semisup_by_batch": spiral_fwd_by,
             "spiral_basis_by_batch": spiral["basis_launches_by_batch"],
-            **ref_paths["forward"], **prod_paths["forward"]},
+            **ref_paths["forward"], **prod_paths["forward"], **mesh_paths["forward"]},
         "max_abs_err": f32["stream_matvec_call"]["max_abs_err"],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -2251,7 +2831,8 @@ def main():
         "launches_by_path": {"serve": serve_bwd_launches, "train": train_bwd,
                              "spiral_semisup": spiral_bwd,
                              "spiral_semisup_by_batch": spiral_bwd_by,
-                             **ref_paths["bwd_blocks"], **prod_paths["bwd_blocks"]},
+                             **ref_paths["bwd_blocks"], **prod_paths["bwd_blocks"],
+                             **mesh_paths["bwd_blocks"]},
         "max_abs_err": bwd["block_bwd_blocks"]["max_abs_err"],
         "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"],

@@ -36,6 +36,11 @@ hyperparameters, for each preconditioner (pivoted Cholesky, Jacobi, and
 spectral deflation where a basis is given): its build, CG iterations and one
 loss-and-gradient (``precond_comparison``).
 
+On several GPUs (``--mesh``, one process per GPU under ``torchrun``) the
+kernel row-shards its block-ELL layout over the ranks (``parallel``):
+``train_campaign`` and ``serve_campaign`` run on that mesh kernel, each
+rank builds the same graph, and rank 0 prints the result.
+
 ``run_campaign``: the whole cycle of ``examples/run_large.py::run_campaign``
 (graph and basis through the keyed on-disk caches, an IVF graph above
 200,000 training points, training with checkpoints and resume, metrics to
@@ -50,6 +55,8 @@ Usage:
   python examples_torch/run_large.py --train --n 262144 --epochs 3
   python examples_torch/run_large.py --train --n 4096 --epochs 2 --cpu
   python examples_torch/run_large.py --manifold curve --train --n 262144 --epochs 3
+  torchrun --nproc-per-node=4 examples_torch/run_large.py --mesh --train --epochs 3
+  torchrun --nproc-per-node=4 examples_torch/run_large.py --mesh --eigensolver lobpcg
 """
 
 from __future__ import annotations
@@ -210,13 +217,16 @@ def cloud_model(device="cuda", n: int = 10_010, k: int = 50, seed: int = 0, **cf
 
 def build_campaign(n: int = 262_144, device="cuda", k: int = None, num_test: int = 2048,
                    num_modes: int = None, seed: int = 0, nu: int = 2,
-                   manifold: str = "torus", graph_builder=None, **cfg_overrides) -> Campaign:
+                   manifold: str = "torus", graph_builder=None, mesh=None,
+                   **cfg_overrides) -> Campaign:
     """The campaign up to the model: sample of ``manifold`` ("torus" or
     "curve"), split, label normalization, kNN graph (the exact search on the
     device, or ``graph_builder(train_x, k, device)``'s graph), unit-bandwidth
     rescale, bandwidth floor, the campaign's InferenceConfig for that
     manifold (with ``cfg_overrides`` replacing fields of it), kernel and
-    model. ``k`` and ``num_modes`` default to the manifold's."""
+    model. ``k`` and ``num_modes`` default to the manifold's. ``mesh``: a
+    ``parallel.mesh.Mesh``; the kernel then row-shards its layout over it
+    (and the campaign runs on the mesh's device)."""
     import torch
 
     from manifold_gp_torch import InferenceConfig, RiemannGP, RiemannMaternKernel
@@ -224,7 +234,7 @@ def build_campaign(n: int = 262_144, device="cuda", k: int = None, num_test: int
     from manifold_gp_torch.ops.graph import build_graph
     from manifold_gp_torch.parameters import GreaterThan
 
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     k = MANIFOLDS[manifold]["k"] if k is None else k
     num_modes = MANIFOLDS[manifold]["num_modes"] if num_modes is None else num_modes
     timings = {}
@@ -279,7 +289,7 @@ def build_campaign(n: int = 262_144, device="cuda", k: int = None, num_test: int
         nu=nu, x=train_x_s, nearest_neighbors=k,
         laplacian_normalization="randomwalk", num_modes=num_modes,
         bump_scale=10.0, cfg=cfg, graph=graph,
-        graphbandwidth_constraint=GreaterThan(gb_min), device=device,
+        graphbandwidth_constraint=GreaterThan(gb_min), device=device, mesh=mesh,
     )
     _sync(device)
     timings["layout_s"] = time.perf_counter() - t0
@@ -289,13 +299,32 @@ def build_campaign(n: int = 262_144, device="cuda", k: int = None, num_test: int
                     noise_floor_rmse=float(0.1 / std_y), gb_min=gb_min, timings=timings)
 
 
+def mesh_twin(camp: Campaign, mesh, **cfg_overrides):
+    """The campaign's model again, on ``mesh`` (a ``parallel.mesh.Mesh``):
+    the same points, labels and graph, the campaign's config with
+    ``cfg_overrides``, the kernel row-sharding its layout over the mesh."""
+    from manifold_gp_torch import RiemannGP, RiemannMaternKernel
+    from manifold_gp_torch.parameters import GreaterThan
+
+    kernel = camp.model.kernel
+    cfg = camp.cfg.replace(**cfg_overrides)
+    twin = RiemannMaternKernel(
+        nu=kernel.nu, x=kernel.x, nearest_neighbors=kernel.nearest_neighbors,
+        laplacian_normalization=kernel.laplacian_normalization, num_modes=kernel.num_modes,
+        bump_scale=kernel.bump_scale, cfg=cfg, graph=camp.graph,
+        graphbandwidth_constraint=GreaterThan(camp.gb_min), mesh=mesh,
+    )
+    return RiemannGP(camp.model.train_x, camp.model.train_y, twin, cfg=cfg)
+
+
 def layout_record(camp: Campaign, n: int, k: int, num_modes: int) -> dict:
     """Sizes of the campaign's graph and layout: block-ELL (row blocks, S,
     f32 panel bytes) or DIA (D offsets, halfwidth W, padded rows Npd, the
     stored 128-lane band's bytes and the bytes of its D used lanes, f32)."""
     from manifold_gp_torch.ops.dia import BAND_WIDTH, DiaLayout
 
-    layout = camp.model.kernel.block_layout
+    kernel = camp.model.kernel
+    layout = kernel.block_layout
     rec = {
         "n": n,
         "k": k,
@@ -304,7 +333,14 @@ def layout_record(camp: Campaign, n: int, k: int, num_modes: int) -> dict:
         "num_edges": int(camp.graph.num_edges),
         "graphbandwidth_floor": camp.gb_min,
     }
-    if isinstance(layout, DiaLayout):
+    if kernel.mesh is not None:
+        tables = kernel._mesh_fused
+        rec.update(layout="mesh_block_ell" if tables is not None else "mesh_ell_scan",
+                   world_size=kernel.mesh.world_size, num_padded=kernel.n_padded)
+        if tables is not None:
+            rec.update(max_blocks=int(tables.s_max), num_row_blocks=int(tables.nrb),
+                       halo=tables.halo)
+    elif isinstance(layout, DiaLayout):
         rec.update(layout="dia", num_offsets=layout.num_offsets,
                    halfwidth=layout.halfwidth, num_padded=layout.num_padded,
                    band_bytes_f32=layout.num_padded * BAND_WIDTH * 4,
@@ -341,7 +377,7 @@ def serve_campaign(n: int = 262_144, hypers: dict = None,
                    device="cuda", k: int = None, num_test: int = 2048,
                    num_modes: int = None, seed: int = 0, nu: int = 2,
                    manifold: str = "torus", love_ranks=(),
-                   num_samples: int = 0, **cfg_overrides):
+                   num_samples: int = 0, mesh=None, **cfg_overrides):
     """Build, solve the basis once and score the held-out points, at
     ``hypers`` (default: the manifold's trained campaign values), with
     ``cfg_overrides`` replacing fields of the campaign's config (e.g.
@@ -358,7 +394,8 @@ def serve_campaign(n: int = 262_144, hypers: dict = None,
     Returns (result dict, params, model). The result holds the timings
     (host clock around work that ends in a device synchronize), the layout
     size, the kernels' launch counts during the basis solve (the forward
-    kernel's also by batch width), and the metrics."""
+    kernel's also by batch width), and the metrics. ``mesh``: serve on a
+    mesh kernel (``build_campaign``)."""
     import torch
 
     from manifold_gp_torch.utils import test_model
@@ -366,7 +403,7 @@ def serve_campaign(n: int = 262_144, hypers: dict = None,
     hypers = MANIFOLDS[manifold]["hypers"] if hypers is None else hypers
     camp = build_campaign(n=n, device=device, k=k, num_test=num_test,
                           num_modes=num_modes, seed=seed, nu=nu, manifold=manifold,
-                          **cfg_overrides)
+                          mesh=mesh, **cfg_overrides)
     k, num_modes = camp.model.kernel.nearest_neighbors, camp.model.kernel.num_modes
     model, timings = camp.model, camp.timings
     kernel, device = model.kernel, model.device
@@ -532,12 +569,14 @@ def cg_iterations(model, params, rhs, precond=None) -> int:
     import torch
 
     from manifold_gp_torch.ops.cg import cg_raw
+    from manifold_gp_torch.parallel import use_mesh
 
-    with torch.no_grad():
+    with torch.no_grad(), use_mesh(model.mesh):
         mv = model.precision_matvec(params)
         if precond is None:
             precond = model.precision_precond_obj(params, matvec=mv)
-        _, iters = cg_raw(mv, rhs, tol=model.cfg.cg_tolerance, max_iter=model.cfg.cg_max_iter,
+        _, iters = cg_raw(mv, model.support_rows(rhs), tol=model.cfg.cg_tolerance,
+                          max_iter=model.cfg.cg_max_iter,
                           precond=None if precond is None else precond.apply, with_info=True)
     return iters
 
@@ -601,7 +640,7 @@ def train_campaign(n: int = 262_144, epochs: int = 3, device="cuda", k: int = No
                    num_test: int = 2048, num_modes: int = None, seed: int = 0,
                    nu: int = 2, lr: float = 1e-1, trained_hypers: dict = None,
                    verbose: bool = False, manifold: str = "torus",
-                   deflation_bases: dict = None):
+                   deflation_bases: dict = None, mesh=None):
     """Train the campaign's hyperparameters for ``epochs`` epochs from its
     initial values with its preconditioner (pivoted Cholesky, rebuilt every
     ``PRECOND_REFRESH`` epochs), then the same epochs again with Jacobi; then
@@ -615,13 +654,14 @@ def train_campaign(n: int = 262_144, epochs: int = 3, device="cuda", k: int = No
     hyperparameters) or, for None, from one solved here (timed).
     Returns (result dict, params, model): per-epoch loss, hyperparameters
     and seconds, CG iteration counts, the launch counts of the kernels per
-    phase, and peak device memory."""
+    phase, and peak device memory. ``mesh``: train on a mesh kernel
+    (``build_campaign``)."""
     import torch
 
     from manifold_gp_torch.utils import constrained_values, manifold_informed_train
 
     camp = build_campaign(n=n, device=device, k=k, num_test=num_test,
-                          num_modes=num_modes, seed=seed, nu=nu, manifold=manifold)
+                          num_modes=num_modes, seed=seed, nu=nu, manifold=manifold, mesh=mesh)
     k, num_modes = camp.model.kernel.nearest_neighbors, camp.model.kernel.num_modes
     model, timings = camp.model, camp.timings
     device = model.device
@@ -877,9 +917,20 @@ def main():
     ap.add_argument("--love-rank", type=int, action="append", default=[],
                     help="serve: also LOVE variances of this rank against the exact ones "
                          "(repeat for several ranks)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="train or serve on a mesh kernel over the torch.distributed group "
+                         "(launch with torchrun, one process per GPU)")
     ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args()
     device = "cpu" if args.cpu else "cuda"
+    mesh = None
+    if args.mesh:
+        from manifold_gp_torch.parallel import init_distributed, make_mesh
+
+        init_distributed(backend="gloo" if args.cpu else None)
+        mesh = make_mesh(device=device)
+    if mesh is not None and (args.campaign or args.cache_dir is not None or args.no_cache):
+        ap.error("--mesh trains (--train) or serves; the campaign cycle runs on one device")
     if args.campaign or args.cache_dir is not None or args.no_cache:
         import shutil
         import tempfile
@@ -904,17 +955,19 @@ def main():
         result, _, _ = train_campaign(
             n=args.n, epochs=3 if args.epochs is None else args.epochs, device=device,
             k=args.k, num_test=args.num_test,
-            num_modes=args.num_modes, seed=args.seed, verbose=args.verbose,
-            manifold=args.manifold,
+            num_modes=args.num_modes, seed=args.seed,
+            verbose=args.verbose and (mesh is None or mesh.rank == 0),
+            manifold=args.manifold, mesh=mesh,
         )
     else:
         overrides = {} if args.eigensolver is None else {"eigensolver": args.eigensolver}
         result, _, _ = serve_campaign(
             n=args.n, device=device, k=args.k, num_test=args.num_test,
             num_modes=args.num_modes, seed=args.seed, manifold=args.manifold,
-            love_ranks=tuple(args.love_rank), **overrides,
+            love_ranks=tuple(args.love_rank), mesh=mesh, **overrides,
         )
-    print(json.dumps(result))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(result))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,4 @@
-"""Riemann (graph-spectral) kernels (port of ``manifold_gp_tpu.kernels.riemann``,
-single device).
+"""Riemann (graph-spectral) kernels (port of ``manifold_gp_tpu.kernels.riemann``).
 
 The kernel holds the data, the kNN graph, the block-ELL layout and the
 normalization flags; learnable state is the flat params dict
@@ -15,7 +14,17 @@ at any size. Then the reference's post-processing: eigval[0] =
 with and its Jacobi diagonal. ``block_layout`` holds either layout of
 ``ops.sparse_formats`` (block-ELL panels or DIA bands).
 
-Not ported yet: the mesh path (its masked LOBPCG among it).
+Multi-GPU (``mesh=``, a ``parallel.mesh.Mesh``): the kernel row-shards the
+fused RCM block-ELL layout over the mesh (``parallel.block_spmv``), or,
+when the graph is not block-sparse enough or ``use_block_sparse=False``,
+the ELL gather scan (``parallel.spmv``). Its training operator then lives
+in the padded row space (``n_padded`` rows, RCM-permuted on the fused path;
+``mesh_rows_np`` maps a node to its row, ``embed_mesh_coeff`` embeds a
+per-node vector), of which each rank holds ``mesh_row_range``. The basis is
+block LOBPCG (or Chebyshev) on the row-sharded Laplacian with the padding
+rows pinned at the Gershgorin bound, gathered to every rank and unpermuted
+to node order; ``eigensolver="host_f64"`` raises on a mesh (the f64
+shift-invert solver is single-device).
 """
 
 from __future__ import annotations
@@ -39,19 +48,24 @@ from ..ops.laplacian import (
 from ..parameters import ConstrainedParam, Positive
 
 
-def _matrix_free_smallest(cfg, matvec, n_rows, m, bound, device):
+def _matrix_free_smallest(cfg, matvec, n_rows, m, bound, device, embed=None):
     """cfg-dispatched large-N basis solver: block LOBPCG (the default) or
     Chebyshev-filtered subspace iteration. Both draw their start block from
-    an explicit generator with seed 0; the Chebyshev path oversamples the
-    block by ~25% and slices back."""
+    an explicit generator with seed 0 at [n_rows, .]; the Chebyshev path
+    oversamples the block by ~25% and slices back. On a mesh ``embed`` maps
+    the node-order draw to this rank's rows of the padded space, so the
+    mesh starts from the single-device block."""
     generator = torch.Generator(device=device).manual_seed(0)
-    if cfg.eigensolver != "chebyshev":
-        x0 = torch.randn((n_rows, m), generator=generator, dtype=torch.float32,
+
+    def start(width):
+        x0 = torch.randn((n_rows, width), generator=generator, dtype=torch.float32,
                          device=device)
-        return lobpcg_smallest(matvec, x0, bound, max_iter=cfg.eigensolver_max_iter)
+        return x0 if embed is None else embed(x0)
+
+    if cfg.eigensolver != "chebyshev":
+        return lobpcg_smallest(matvec, start(m), bound, max_iter=cfg.eigensolver_max_iter)
     mb = min(m + max(8, m // 4), n_rows)
-    x0 = torch.randn((n_rows, mb), generator=generator, dtype=torch.float32,
-                     device=device)
+    x0 = start(mb)
     return chebyshev_filtered_smallest(
         matvec, x0, bound, num_modes=m, degree=cfg.cheb_degree,
         num_iters=cfg.cheb_iters,
@@ -77,11 +91,12 @@ class RiemannKernel:
         graphbandwidth_prior=None,
         graphbandwidth_constraint=None,
         cfg: InferenceConfig = DEFAULT_CONFIG,
+        mesh=None,
         graph=None,
         knn_index=None,
         device="cuda",
     ):
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         if cfg.spmv_kernel == "cuda" and self.device.type != "cuda":
             raise ValueError("spmv_kernel='cuda' needs device='cuda'")
         self.x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
@@ -118,12 +133,82 @@ class RiemannKernel:
         ]
         self.use_dense_operator = self.graph.num_nodes <= cfg.dense_operator_max_size
         self.block_layout = None
-        if not self.use_dense_operator and cfg.use_block_sparse:
+        # (a mesh kernel builds its own row-sharded layout below)
+        if not self.use_dense_operator and cfg.use_block_sparse and mesh is None:
             from ..ops.sparse_formats import build_layout
 
             self.block_layout = build_layout(
                 self.graph, dia_max_offsets=cfg.dia_max_offsets, use_dia=cfg.use_dia
             )
+        self.mesh = mesh
+        self._sharded_tables = None
+        self._mesh_fused = None
+        if mesh is not None:
+            if cfg.use_block_sparse:
+                from ..parallel.block_spmv import build_mesh_block_tables
+
+                self._mesh_fused = build_mesh_block_tables(self.graph, mesh)
+            if self._mesh_fused is None:
+                from ..parallel.spmv import shard_graph_rows
+
+                self._sharded_tables = shard_graph_rows(self.graph, mesh)
+
+    # -- the row-sharded vector space (mesh kernels) -------------------------
+    @property
+    def n_padded(self) -> int:
+        """Row count of the padded row-sharded vector space (the node count
+        on one device)."""
+        if self.mesh is None:
+            return self.graph.num_nodes
+        if self._mesh_fused is not None:
+            return self._mesh_fused.rows
+        return self._sharded_tables[3]
+
+    @property
+    def mesh_row_range(self):
+        """(first row, row count) of this rank's rows of the padded space."""
+        if self.mesh is None:
+            return 0, self.graph.num_nodes
+        chunk = self.n_padded // self.mesh.world_size
+        return self.mesh.rank * chunk, chunk
+
+    @property
+    def mesh_rows_np(self):
+        """Host map node id -> padded row (RCM position on the fused path,
+        identity on the scan path)."""
+        import numpy as np
+
+        if self._mesh_fused is not None:
+            return self._mesh_fused.row_of_node_np
+        return np.arange(self.graph.num_nodes)
+
+    @property
+    def mesh_rows(self):
+        """Device copy of ``mesh_rows_np``."""
+        if self._mesh_fused is not None:
+            return self._mesh_fused.row_of_node
+        return torch.arange(self.graph.num_nodes, device=self.device)
+
+    def embed_mesh_coeff(self, d, fill: float = 0.0):
+        """[N] per-node tensor -> this rank's rows of its padded embedding
+        (``fill`` on padding rows); differentiable in ``d``."""
+        if self._mesh_fused is not None:
+            return self._mesh_fused.gather_coeff(d, fill=fill)
+        lo, count = self.mesh_row_range
+        pad = self.n_padded - d.shape[0]
+        return torch.nn.functional.pad(d, (0, pad), value=fill)[lo:lo + count]
+
+    def embed_mesh_rows(self, values):
+        """[N, ...] node-order tensor -> this rank's rows of its padded
+        embedding (zero on padding rows)."""
+        if self._mesh_fused is not None:
+            sh = self._mesh_fused.local
+            return values[sh.perm_rows] * sh.row_mask.reshape(
+                (-1,) + (1,) * (values.dim() - 1))
+        lo, count = self.mesh_row_range
+        pad = self.n_padded - values.shape[0]
+        out = torch.cat([values, values.new_zeros((pad,) + tuple(values.shape[1:]))])
+        return out[lo:lo + count]
 
     # -- parameters --------------------------------------------------------
     def init_params(self, graphbandwidth=None, lengthscale=None) -> dict:
@@ -181,11 +266,16 @@ class RiemannKernel:
         """(eigval [m], eigvec [N, m]) of the graph Laplacian, with the
         reference's truncation and randomwalk-recovery post-processing."""
         if self.cfg.eigensolver == "host_f64":
+            if self.mesh is not None:
+                raise ValueError("eigensolver='host_f64' is a single-device solver; a mesh "
+                                 "kernel solves its basis with 'lobpcg' or 'chebyshev'")
             return self._eval_basis_host_f64(params)
         c = self.coeffs(params)
         n = self.graph.num_nodes
         m = min(self.num_modes, n)
-        if n <= self.cfg.eigh_max_size:
+        if self.mesh is not None:
+            eigval, eigvec = self._eval_basis_mesh(c, m)
+        elif n <= self.cfg.eigh_max_size:
             eigval, eigvec = torch.linalg.eigh(laplacian_dense(self.graph, c))
             eigval, eigvec = eigval[:m], eigvec[:, :m]
         else:
@@ -206,6 +296,52 @@ class RiemannKernel:
         eigvec = eigvec * torch.rsqrt(c.deg)[:, None]
         eigvec = eigvec / torch.linalg.norm(eigvec, dim=0, keepdim=True)
         return eigval, eigvec
+
+    def _eval_basis_mesh(self, c, m):
+        """The row-sharded basis: LOBPCG (or Chebyshev) on the padded
+        Laplacian over the mesh's SpMV (f32 panels on the fused path), the
+        padding rows pinned at the Gershgorin bound, the top of the shifted
+        spectrum, so they never displace a wanted pair. The start block is
+        the single-device draw at the support rows. Every rank then gathers
+        the eigenvectors and takes them in node order."""
+        from ..ops.laplacian import gershgorin_bound
+        from ..parallel.mesh import all_gather_rows, use_mesh
+
+        n = self.graph.num_nodes
+        npad = self.n_padded
+        lo, count = self.mesh_row_range
+        bound = gershgorin_bound(self.graph, c)
+        if self._mesh_fused is not None:
+            from ..parallel.block_spmv import assemble_sharded, make_sharded_block_matvec_ad
+
+            tables = self._mesh_fused
+            mask = tables.local.row_mask
+            blocks = assemble_sharded(tables, c.diag, c.triu)
+            mv = make_sharded_block_matvec_ad(tables)
+
+            def lap_mv_pad(v):
+                return mask * mv(blocks, v) + bound * (1.0 - mask) * v
+        else:
+            from ..parallel.spmv import sharded_adjacency_matvec
+
+            ee, ec, em, _ = self._sharded_tables
+            pad = npad - n
+            diag_p = torch.nn.functional.pad(c.diag, (0, pad))[lo:lo + count]
+            mask = (torch.arange(lo, lo + count, device=self.device) < n).to(
+                torch.float32)[:, None]
+
+            def lap_mv_pad(v):
+                lv = diag_p[:, None] * v - sharded_adjacency_matvec(ee, ec, em, c.triu, v,
+                                                                   self.mesh)
+                return mask * lv + bound * (1.0 - mask) * v
+
+        with use_mesh(self.mesh):
+            eigval, eigvec = _matrix_free_smallest(self.cfg, lap_mv_pad, n, m, bound,
+                                                   self.device, embed=self.embed_mesh_rows)
+            eigvec = all_gather_rows(eigvec)
+        if self._mesh_fused is not None:
+            return eigval, eigvec[self._mesh_fused.row_of_node]
+        return eigval, eigvec[:n]
 
     def _eval_basis_host_f64(self, params):
         """The f64 shift-invert basis on the host (``host_f64_smallest``),
@@ -304,10 +440,32 @@ class RiemannMaternKernel(RiemannKernel):
 
         With ``permuted_io=True`` (block path only) it works on
         padded-RCM-space vectors so compositions/solves built on top do no
-        per-matvec permutation gathers."""
+        per-matvec permutation gathers.
+
+        On a mesh kernel: the row-sharded operator on this rank's rows of
+        the padded space (zero padding rows), bf16 panels when
+        ``spmv_dtype="bfloat16"``, edge- or panel-space cotangents per
+        ``solve_cotangent``."""
         from ..ops.matern import make_matern_precision_matvec
 
         c = self.coeffs(params) if coeffs is None else coeffs
+        if self.mesh is not None:
+            if self._mesh_fused is not None:
+                from ..parallel.block_spmv import make_sharded_matern_precision_matvec_fused
+
+                return make_sharded_matern_precision_matvec_fused(
+                    self._mesh_fused, c, self.nu, self.lengthscale(params),
+                    self.laplacian_normalization,
+                    dtype=torch.bfloat16 if self.cfg.spmv_dtype == "bfloat16" else None,
+                    grad_space=self.cfg.solve_cotangent,
+                )
+            from ..parallel.spmv import make_sharded_matern_precision_matvec
+
+            mv, _ = make_sharded_matern_precision_matvec(
+                self.graph, self.mesh, c, self.nu, self.lengthscale(params),
+                self.laplacian_normalization, tables=self._sharded_tables,
+            )
+            return mv
         # The fused block path assembles *shifted* panels itself: pass the
         # layout plus the panel type, not an unshifted panel buffer.
         dense, block = None, None

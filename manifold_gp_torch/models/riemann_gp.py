@@ -1,5 +1,5 @@
 """Implicit-manifold GP regression model (port of
-``manifold_gp_tpu.models.riemann_gp``, single device).
+``manifold_gp_tpu.models.riemann_gp``).
 
 Training: ``precision_matvec`` composes Schur (semisupervised) -> Scale ->
 Noise over the kernel's Matérn precision (including the ``inverse_scale``
@@ -27,6 +27,18 @@ pathwise joint samples in feature space. ``posterior(base_model=...)``
 blends in a vanilla GP away from the manifold (base_scale = 1 - bump of
 the distance to the nearest graph node): means add, covariances add
 outer(base_scale)-weighted, stddevs add scaled.
+
+On a mesh kernel (``kernel.mesh``, one process per GPU) the training loss
+runs in the kernel's padded row-sharded space, this rank's rows of it: the
+labels, the labeled/unlabeled masks and the probes are embedded at their
+support rows, the Schur complement is the masked form
+(``make_schur_matvec_masked``), the preconditioners are the masked
+``ops.pivchol`` classes, the SLQ trace dimension is the true label count,
+and the exact log-det densifies the support block in 128-column chunks.
+The loss is replicated: every rank returns the same value and, through
+``parallel.mesh``'s autograd pair, the same complete gradients. Serving
+(``eval``, ``posterior``) runs on the gathered basis, replicated, as on one
+device.
 """
 
 from __future__ import annotations
@@ -50,6 +62,7 @@ from ..ops.matern import (
     noisy_scaled_diag,
 )
 from ..ops.operator import Operator
+from ..parallel.mesh import row_sum, use_mesh
 from ..parameters import ConstrainedParam, GreaterThan, Positive
 
 
@@ -93,6 +106,34 @@ class RiemannGP:
         self.train_is_graph = self.train_x.shape == kernel.x.shape and bool(
             torch.equal(self.train_x, kernel.x)
         )
+        # Mesh kernels: the static embeddings of this rank's rows of the
+        # padded space: the labels at their support rows, the 0/1
+        # labeled/unlabeled masks, and which support entries this rank holds.
+        self.mesh = getattr(kernel, "mesh", None)
+        if self.mesh is not None:
+            n_nodes = kernel.graph.num_nodes
+            lo, count = kernel.mesh_row_range
+            support = (np.flatnonzero(self.labeled) if self.labeled is not None
+                       else np.arange(n_nodes))
+            rows = kernel.mesh_rows_np[support] - lo
+            mine = np.flatnonzero((rows >= 0) & (rows < count))
+
+            def dev(a, dtype=torch.int64):
+                return torch.as_tensor(a).to(device=self.device, dtype=dtype)
+
+            self._support_local_rows = dev(rows[mine])
+            self._support_local_ids = dev(mine)
+            y_pad = np.zeros(count, np.float32)
+            y_pad[rows[mine]] = self.train_y.cpu().numpy()[mine]
+            mask_l = np.zeros(count, np.float32)
+            mask_l[rows[mine]] = 1.0
+            mask_u = np.zeros(count, np.float32)
+            if self.labeled is not None:
+                urows = kernel.mesh_rows_np[np.flatnonzero(~self.labeled)] - lo
+                mask_u[urows[(urows >= 0) & (urows < count)]] = 1.0
+            self._y_pad = dev(y_pad, torch.float32)
+            self._mask_l = dev(mask_l, torch.float32)
+            self._mask_u = dev(mask_u, torch.float32)
 
     # -- parameters --------------------------------------------------------
     def init_params(self, noise: float = None, outputscale: float = None,
@@ -137,7 +178,10 @@ class RiemannGP:
         permutation, so one permute_in/out pair at the boundary replaces
         per-Laplacian-matvec row gathers (a noisy nu=2 apply does 6 of
         them). The Schur complement indexes node rows, so a labeled model
-        keeps the base operator's own permute in/out per apply."""
+        keeps the base operator's own permute in/out per apply. On a mesh
+        kernel: ``_precision_matvec_sharded``."""
+        if self.mesh is not None:
+            return self._precision_matvec_sharded(params, noise=noise, coeffs=coeffs)
         permuted = self.labeled is None and self.kernel.block_layout is not None
         mv = self.kernel.precision_matvec(params, coeffs=coeffs, permuted_io=permuted)
         if self.labeled is not None:
@@ -169,6 +213,136 @@ class RiemannGP:
             mv = Operator(fn, mv.consts)
         return mv
 
+    # -- the row-sharded path (mesh kernels) -----------------------------------
+    def support_rows(self, values: torch.Tensor) -> torch.Tensor:
+        """[n, ...] values over the training points (node order of the
+        support) -> this rank's rows of their padded embedding, zero
+        elsewhere; the values themselves on one device."""
+        if self.mesh is None:
+            return values
+        out = values.new_zeros((self._y_pad.shape[0],) + tuple(values.shape[1:]))
+        out[self._support_local_rows] = values[self._support_local_ids]
+        return out
+
+    def _precision_matvec_sharded(self, params, noise: bool = True, coeffs=None) -> Operator:
+        """The kernel's row-sharded Matérn operator -> masked Schur
+        (semisupervised) -> Scale -> Noise, on this rank's rows of the
+        padded space; equal to ``precision_matvec`` of one device embedded
+        at the support rows."""
+        from ..ops.matern import make_schur_matvec_masked
+
+        mv = self.kernel.precision_matvec(params, coeffs=coeffs)
+        if self.labeled is not None:
+            pd = (self._padded_precision_diag(params, coeffs=coeffs)
+                  if self.cfg.cg_precondition else None)
+            mv = make_schur_matvec_masked(mv, self._mask_l, self._mask_u,
+                                          cg_tol=self.cfg.cg_tolerance,
+                                          cg_max_iter=self.cfg.cg_max_iter, precond_diag=pd)
+        if self.use_outputscale:
+            mv = make_scaled_matvec(mv, self.outputscale(params))
+        if noise:
+            mv = make_noisy_matvec(mv, self.noise(params))
+        return mv
+
+    @torch.no_grad()
+    def _padded_precision_diag(self, params, coeffs=None):
+        """diag(Q) on this rank's rows of the padded space (1.0 on padding,
+        so a Jacobi division is the identity there)."""
+        d = self.kernel.precision_diag(params, coeffs=coeffs)
+        return self.kernel.embed_mesh_coeff(d, fill=1.0)
+
+    @torch.no_grad()
+    def _precond_obj_sharded(self, params, matvec=None, coeffs=None):
+        """The masked preconditioner of the padded composed operator per
+        cfg.precond_type: ``MaskedDiagPrecond`` on the noisy-scaled padded
+        diagonal ("jacobi"), or a rank-``precond_rank`` masked pivoted
+        Cholesky of ``matvec`` ("pivchol"). None when preconditioning is
+        off. Call it under the model's mesh context."""
+        cfg = self.cfg
+        if not cfg.cg_precondition or cfg.precond_type == "none":
+            return None
+        from ..ops.pivchol import MaskedDiagPrecond, make_pivchol_precond_masked
+
+        mask = self._mask_l
+        d_noisy = noisy_scaled_diag(
+            self._padded_precision_diag(params, coeffs=coeffs),
+            scale=self.outputscale(params) if self.use_outputscale else None,
+            noise=self.noise(params),
+        )
+        d_noisy = torch.where(mask > 0, d_noisy, torch.ones_like(d_noisy))
+        if cfg.precond_type == "pivchol" and matvec is not None:
+            return make_pivchol_precond_masked(matvec, d_noisy, mask, cfg.precond_rank)
+        return MaskedDiagPrecond(d=d_noisy, mask=mask)
+
+    def _dense_support_logdet(self, mv):
+        """log det of the support block of the padded operator: its columns
+        densified 128 at a time (one-hot columns at this rank's support
+        rows), each rank's support rows summed into the replicated [n, n]
+        block (the ranks' rows are disjoint: the sum gathers them), then a
+        Cholesky."""
+        from ..parallel.mesh import leave_sharded
+
+        n = self.num_data
+        count = self._y_pad.shape[0]
+        rows, ids = self._support_local_rows, self._support_local_ids
+        chunk = 128
+        cols = []
+        for c0 in range(0, n, chunk):
+            w = min(chunk, n - c0)
+            sel = (ids >= c0) & (ids < c0 + w)
+            rhs = torch.zeros((count, w), dtype=torch.float32, device=self.device)
+            rhs[rows[sel], ids[sel] - c0] = 1.0
+            out = mv(rhs)
+            part = out.new_zeros((n, w)).index_copy(0, ids, out[rows])
+            cols.append(leave_sharded(part, self.mesh))
+        dense = torch.cat(cols, dim=1)
+        chol = torch.linalg.cholesky(dense)
+        return 2.0 * torch.sum(torch.log(torch.diagonal(chol)))
+
+    def _mll_loss_sharded(self, params, generator=None, precond_override=None, probes=None):
+        """``mll_loss`` on the row-sharded mesh path: the same math (and the
+        same probes, embedded at the support rows) on this rank's rows of
+        the padded space. ``probes`` are node-order [n, P] (a pair for the
+        mBCG log-det), as on one device."""
+        n = self.num_data
+        cfg = self.cfg
+        with use_mesh(self.mesh):
+            c = self.kernel.coeffs(params)
+            mv = self._precision_matvec_sharded(params, noise=True, coeffs=c)
+            y_pad = self._y_pad
+            quad = row_sum(y_pad * mv(y_pad[:, None])[:, 0])
+            if n <= cfg.max_cholesky:
+                ld = self._dense_support_logdet(mv)
+            else:
+                pobj = (precond_override if precond_override is not None
+                        else self._precond_obj_sharded(params, matvec=mv, coeffs=c))
+                if cfg.slq_precond_quadrature and pobj is not None:
+                    from ..ops.slq import slq_logdet_mbcg
+
+                    pair = None if probes is None else tuple(self.support_rows(p)
+                                                             for p in probes)
+                    ld = slq_logdet_mbcg(mv, pobj, generator, cfg.num_probes,
+                                         cfg.lanczos_max_iter, cg_tol=cfg.cg_tolerance,
+                                         cg_max_iter=cfg.cg_max_iter, probes=pair)
+                else:
+                    from ..ops.slq import rademacher_probes, slq_logdet
+
+                    if probes is None:
+                        if generator is None:
+                            raise ValueError("stochastic logdet needs probes or a "
+                                             "torch.Generator")
+                        probes = rademacher_probes(generator, n, cfg.num_probes,
+                                                   device=self.device)
+                    ld = slq_logdet(mv, self.support_rows(probes.to(self.device)),
+                                    num_steps=cfg.lanczos_max_iter, cg_tol=cfg.cg_tolerance,
+                                    cg_max_iter=cfg.cg_max_iter,
+                                    precond=None if pobj is None else pobj.apply,
+                                    num_nodes=n)
+        loss = 0.5 * (quad - ld + n * math.log(2.0 * math.pi))
+        for _, prior, value_fn in self.kernel.priors():
+            loss = loss - torch.sum(prior.log_prob(value_fn(params)))
+        return loss / n
+
     def precision_precond_obj(self, params, noise: bool = True, coeffs=None, matvec=None):
         """Preconditioner OBJECT (``ops.pivchol`` protocol: apply / sample /
         logdet) for the composed precision operator, per cfg.precond_type:
@@ -181,8 +355,11 @@ class RiemannGP:
 
         None when cfg.cg_precondition is off or precond_type == "none".
         Detached: a preconditioner never changes solutions, so no gradient
-        flows through it."""
+        flows through it. On a mesh kernel: ``_precond_obj_sharded``."""
         cfg = self.cfg
+        if self.mesh is not None:
+            with use_mesh(self.mesh):
+                return self._precond_obj_sharded(params, matvec=matvec, coeffs=coeffs)
         if not cfg.cg_precondition or cfg.precond_type == "none":
             return None
         from ..ops.pivchol import DiagPrecond, make_pivchol_precond
@@ -272,9 +449,17 @@ class RiemannGP:
         lam_hi = gershgorin_bound(self.kernel.graph, c)
         lam_mid = torch.sqrt(torch.clamp(eigval[-1], min=1e-12) * lam_hi)
         tau = torch.maximum(composed_eig(lam_mid), 1e-12 * torch.max(q))
-        core = make_deflation_precond(v, q, tau)
+        if self.mesh is None:
+            core = make_deflation_precond(v, q, tau)
+            if randomwalk:
+                return ConjugatedPrecond(d=torch.sqrt(c.deg), inner=core)
+            return core
+        # on a mesh: the eigenvectors at this rank's rows of the padded space
+        core = make_deflation_precond(self.kernel.embed_mesh_rows(v), q, tau,
+                                      mask=self._mask_l)
         if randomwalk:
-            return ConjugatedPrecond(d=torch.sqrt(c.deg), inner=core)
+            return ConjugatedPrecond(d=self.kernel.embed_mesh_coeff(torch.sqrt(c.deg), fill=1.0),
+                                     inner=core)
         return core
 
     # -- training loss -----------------------------------------------------
@@ -293,6 +478,9 @@ class RiemannGP:
         in place of the config-selected one, e.g. one cached across epochs
         (``build_precond``) or ``deflation_precond``'s.
         """
+        if self.mesh is not None:
+            return self._mll_loss_sharded(params, generator=generator,
+                                          precond_override=precond_override, probes=probes)
         n = self.num_data
         y = self.train_y
         cfg = self.cfg
@@ -333,6 +521,8 @@ class RiemannGP:
         (``idx``, or drawn from ``generator``)."""
         mv = self.kernel.precision_matvec(params)
         nn = self.kernel.graph.num_nodes
+        if self.mesh is not None:
+            return self._average_variance_sharded(mv, params, nn, num_rand_vec, generator, idx)
         precond = (
             make_jacobi_precond(self.kernel.precision_diag(params))
             if self.cfg.cg_precondition
@@ -342,6 +532,33 @@ class RiemannGP:
             mv, nn, num_rand_vec, self.cfg, generator=generator, precond=precond,
             idx=idx, device=self.device,
         )
+
+    def _average_variance_sharded(self, mv, params, nn, num_rand_vec, generator, idx):
+        """``average_variance`` on the mesh: one-hot columns at the padded
+        rows of the chosen nodes (drawn at the global shape), one sharded
+        Jacobi-preconditioned CG solve, the mean of their diagonal."""
+        from ..ops.cg import cg_solve
+
+        cfg = self.cfg
+        if num_rand_vec >= nn:
+            idx = torch.arange(nn, device=self.device)
+        elif idx is None:
+            if generator is None:
+                raise ValueError("average_variance needs idx or a torch.Generator")
+            idx = torch.randint(0, nn, (num_rand_vec,), generator=generator,
+                                device=generator.device)
+        idx = torch.as_tensor(idx).to(device=self.device, dtype=torch.int64)
+        lo, count = self.kernel.mesh_row_range
+        rows = self.kernel.mesh_rows[idx] - lo
+        mine = (rows >= 0) & (rows < count)
+        rhs = torch.zeros((count, idx.shape[0]), dtype=torch.float32, device=self.device)
+        rhs[rows[mine], torch.arange(idx.shape[0], device=self.device)[mine]] = 1.0
+        precond = (make_jacobi_precond(self._padded_precision_diag(params))
+                   if cfg.cg_precondition else None)
+        with use_mesh(self.mesh):
+            x = cg_solve(mv, rhs, tol=cfg.cg_tolerance, max_iter=cfg.cg_max_iter,
+                         precond=precond)
+            return row_sum(torch.sum(rhs * x, dim=1)) / idx.shape[0]
 
     # -- prediction --------------------------------------------------------
     @torch.no_grad()

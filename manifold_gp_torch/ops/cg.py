@@ -24,6 +24,12 @@ synchronisation each), so that iteration counts equal the JAX package's.
 nothing). ``label`` is the caller's ``log_label``, None unless given: the
 Schur operator's inner solves (``ops.matern.make_schur_matvec``) pass
 "schur_inner", forward and adjoint alike.
+
+Row-sharded operators (``parallel``): every sum over rows is
+``parallel.mesh.row_sum``, which all-reduces under a mesh context and is
+``torch.sum`` without one; the solve's Function captures the context in its
+forward and re-enters it in its backward, so the stop test reads a reduced
+value and every rank takes the same branch.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel.mesh import active_mesh, row_sum, use_mesh
 from .operator import as_operator
 
 iteration_log: Optional[list] = None
@@ -63,7 +70,7 @@ def cg_raw(
     squeeze = b.dim() == 1
     if squeeze:
         b = b[:, None]
-    b_norm2 = torch.sum(b * b, dim=0)
+    b_norm2 = row_sum(b * b, dim=0)
     # Guard all-zero columns (solution 0).
     stop2 = (tol * tol) * torch.clamp(b_norm2, min=1e-30)
 
@@ -71,25 +78,25 @@ def cg_raw(
     r = b if x0 is None else b - matvec(x)
     z = r if precond is None else precond(r)
     p = z
-    rs = torch.sum(r * r, dim=0)
-    rz = rs if precond is None else torch.sum(r * z, dim=0)
+    rs = row_sum(r * r, dim=0)
+    rz = rs if precond is None else row_sum(r * z, dim=0)
     zero = torch.zeros_like(rs)
     one = torch.ones_like(rs)
 
     iters = 0
     while iters < max_iter and bool(torch.any(rs > stop2)):
         ap = matvec(p)
-        pap = torch.sum(p * ap, dim=0)
+        pap = row_sum(p * ap, dim=0)
         active = rs > stop2
         alpha = torch.where(active, rz / torch.where(pap == 0, one, pap), zero)
         x = x + alpha[None, :] * p
         r = r - alpha[None, :] * ap
-        rs_new = torch.sum(r * r, dim=0)
+        rs_new = row_sum(r * r, dim=0)
         if precond is None:
             z, rz_new = r, rs_new
         else:
             z = precond(r)
-            rz_new = torch.sum(r * z, dim=0)
+            rz_new = row_sum(r * z, dim=0)
         beta = torch.where(active, rz_new / torch.where(rz == 0, one, rz), zero)
         p = z + beta[None, :] * p
         rs = torch.where(active, rs_new, rs)
@@ -124,7 +131,7 @@ class _CGSolve(torch.autograd.Function):
         x = cg_raw(lambda v: fn(v, *consts), b, tol, max_iter, precond=precond,
                    log_label=log_label)
         ctx.fn, ctx.precond, ctx.tol, ctx.max_iter = fn, precond, tol, max_iter
-        ctx.log_label = log_label
+        ctx.log_label, ctx.mesh = log_label, active_mesh()
         ctx.save_for_backward(x, *consts)
         return x
 
@@ -133,9 +140,10 @@ class _CGSolve(torch.autograd.Function):
         x, *consts = ctx.saved_tensors
         fn = ctx.fn
         # A is symmetric for every operator in this framework.
-        lam = cg_raw(lambda v: fn(v, *consts), g.contiguous(), ctx.tol, ctx.max_iter,
-                     precond=ctx.precond, log_label=ctx.log_label)
-        bars = consts_cotangents(fn, x, consts, ctx.needs_input_grad[6:], -lam)
+        with use_mesh(ctx.mesh):
+            lam = cg_raw(lambda v: fn(v, *consts), g.contiguous(), ctx.tol, ctx.max_iter,
+                         precond=ctx.precond, log_label=ctx.log_label)
+            bars = consts_cotangents(fn, x, consts, ctx.needs_input_grad[6:], -lam)
         return (None, None, None, None, None, lam if ctx.needs_input_grad[5] else None, *bars)
 
 

@@ -34,6 +34,11 @@ operand is the forward kernel applied to ``g`` (the operator is symmetric),
 the cotangent of the panels is K3. On the GPU there is no "resident einsum
 below a size budget" branch: the device alone picks kernel or plain version.
 
+``window_matvec_call`` / ``window_bwd_blocks_call`` run the same two
+kernels on one shard of a row-sharded layout (``parallel.block_spmv``):
+local panels against an exchanged window operand, with block ids relative
+to the window, checked once when the shard's tables were built.
+
 ``launch_count`` counts launches of the forward kernel (and
 ``launch_count_by_batch`` them by batch width) and ``bwd_launch_count``
 those of K3 (and ``bwd_launch_count_by_batch``), each incremented only
@@ -292,6 +297,33 @@ def resident_matvec_call(bc_flat, blocks, pv, *, s_max: int):
 
 
 stream_matvec_call = resident_matvec_call
+
+
+def _check_window(name, window, num_col_blocks):
+    if window.dim() != 2 or window.shape[0] != num_col_blocks * BLOCK:
+        raise ValueError(f"{name}: the window operand has {tuple(window.shape)} rows, its "
+                         f"block ids were checked against {num_col_blocks} column blocks")
+
+
+def window_matvec_call(bc_flat, blocks, window, *, s_max: int, num_col_blocks: int):
+    """The forward kernel on one shard of a row-sharded layout
+    (``parallel.block_spmv``): local panels [lrb, 128, S*128] against the
+    exchanged ``window`` operand [num_col_blocks*128, B], whose rows are not
+    the global row space; ``bc_flat`` [lrb*S] holds block ids relative to
+    the window, checked against ``num_col_blocks`` once when the shard's
+    tables were built (no per-call device sync). Raises on a window of any
+    other height. Returns [lrb*128, B]."""
+    _check_window("window_matvec_call", window, num_col_blocks)
+    return _dispatch(bc_flat, blocks, window, s_max)
+
+
+def window_bwd_blocks_call(bc_flat, g, window, *, s_max: int, num_col_blocks: int,
+                           out_dtype=torch.float32):
+    """K3 on one shard: the local panel cotangent ``g`` [lrb*128, B] times
+    the exchanged ``window``, with window-relative block ids checked once
+    (``window_matvec_call``). Returns [lrb, 128, S*128] in ``out_dtype``."""
+    _check_window("window_bwd_blocks_call", window, num_col_blocks)
+    return _dispatch_bwd(bc_flat, g, window, s_max, out_dtype)
 
 
 def block_matvec(layout: BlockLayout, blocks, pv):

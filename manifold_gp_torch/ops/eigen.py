@@ -23,6 +23,14 @@ columns) and to ``X`` (m columns), plus one apply to the start block.
 
 ``lanczos_eigh`` is single-vector Lanczos with full reorthogonalization
 (two passes a step), for LOVE's root decomposition of a train covariance.
+
+Row-sharded blocks (``parallel``): under a mesh context LOBPCG and the
+Chebyshev iteration take this rank's rows of the block, and every reduction
+over rows (Gram products, column norms, the filter's rescale) goes through
+``parallel.mesh``'s ``row_*`` helpers, which are the plain calls with no
+mesh. The small replicated ``eigh`` / ``qr`` / ``svd`` results are rank 0's
+(``replicate``), so every rank takes the same rotation; ``_extend_basis``
+reads the top rows of the block, which rank 0 holds.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+
+from ..parallel.mesh import active_mesh, replicate, row_gram, row_max, row_norm, row_sum
 
 
 # Relative breakdown threshold: f32 residuals after double
@@ -106,16 +116,22 @@ def _eigh_descending(a):
     """Eigenpairs of the symmetrized ``a``, largest first (the library's
     ``_eigh_ascending``, which despite its name returns descending order)."""
     w, v = torch.linalg.eigh((a + a.T) / 2.0)
-    return w.flip(0), v.flip(1)
+    return replicate(w.flip(0), v.flip(1))
+
+
+def _rows(x) -> int:
+    """The global row count of a (row-sharded) block: shards are equal."""
+    mesh = active_mesh()
+    return x.shape[0] * (1 if mesh is None else mesh.world_size)
 
 
 def _svqb(x):
     """Truncated orthonormal basis of ``x`` by SVQB: normalize the columns,
     eigendecompose the [k, k] Gram, scale; directions whose Gram eigenvalue
     falls below eps times the largest are zeroed, not normalized."""
-    norms = torch.linalg.norm(x, dim=0, keepdim=True)
+    norms = row_norm(x, dim=0, keepdim=True)
     x = x / torch.where(norms == 0, 1.0, norms)
-    inner = x.T @ x
+    inner = row_gram(x, x)
     w, v = _eigh_descending(inner)
     tau = torch.finfo(x.dtype).eps * w[0]
     padded = torch.maximum(w, tau)
@@ -123,7 +139,7 @@ def _svqb(x):
     ortho = x @ (v * sqrted[None, :])
     keep = ((w > tau) & (torch.diagonal(inner) > 0.0))[None, :]
     ortho = ortho * keep.to(ortho.dtype)
-    norms = torch.linalg.norm(ortho, dim=0, keepdim=True)
+    norms = row_norm(ortho, dim=0, keepdim=True)
     keep = keep & (norms > 0.0)
     return ortho / torch.where(keep, norms, 1.0)
 
@@ -140,34 +156,44 @@ def _project_out(basis, u):
     ``basis`` component through the normalization are zeroed, so
     ``[basis, u]`` stays zero-or-orthonormal."""
     for _ in range(2):
-        u = u - basis @ (basis.T @ u)
+        u = u - basis @ row_gram(basis, u)
         u = _orthonormalize(u)
     # end on a subtraction of the basis, then drop suspicious columns
     for _ in range(2):
-        u = u - basis @ (basis.T @ u)
-    norm_u = torch.linalg.norm(u, dim=0, keepdim=True)
+        u = u - basis @ row_gram(basis, u)
+    norm_u = row_norm(u, dim=0, keepdim=True)
     return u * (norm_u >= 0.99).to(u.dtype)
 
 
 def _rayleigh_ritz_orth(a, s):
     """Eigenpairs (descending) of ``a`` projected onto the orthonormal
     (zero columns allowed) ``s``."""
-    return _eigh_descending(s.T @ a(s))
+    return _eigh_descending(row_gram(s, a(s)))
 
 
 def _extend_basis(x, m):
     """``m`` directions orthonormal to the orthonormal [n, k] ``x``, by a
     block Householder reflector built from the SVD of its top [k, k] block:
-    H(w) maps vstack(0, I_m, 0) onto the extension."""
+    H(w) maps vstack(0, I_m, 0) onto the extension.
+
+    On a mesh the top rows live on rank 0: its [k, k] SVD and its rows
+    k:k+m of ``w`` are broadcast, and rank 0 alone adds the identity."""
     n, k = x.shape
+    mesh = active_mesh()
+    top = mesh is None or mesh.rank == 0
+    if mesh is not None and n < k + m:
+        raise ValueError(f"LOBPCG on a mesh: rank 0 holds {n} rows, fewer than the "
+                         f"{k + m} its start block's extension reads")
     upper, lower = x[:k], x[k:]
     u, s, vt = torch.linalg.svd(upper)
-    y = torch.cat([upper + u @ vt, lower], dim=0)
+    uvt, s, vt = replicate(u @ vt, s, vt)
+    y = torch.cat([upper + uvt, lower], dim=0) if top else x
     w = y @ (vt.T * ((2.0 * (1.0 + s)) ** -0.5)[None, :])
     # w @ w[k:].T @ vstack(I_m, 0), with the product by the identity rows
     # taken as a slice
-    h = -2.0 * (w @ w[k:k + m].T)
-    h[k:k + m] += torch.eye(m, dtype=x.dtype, device=x.device)
+    h = -2.0 * (w @ replicate(w[k:k + m]).T)
+    if top:
+        h[k:k + m] += torch.eye(m, dtype=x.dtype, device=x.device)
     return h
 
 
@@ -179,7 +205,8 @@ def _lobpcg_standard(a: Callable, x: torch.Tensor, max_iter: int, tol: Optional[
     ``tol`` relative to the f32 error of computing it. With ``tol <= 0``
     (never converged) the loop makes no host read; otherwise it reads the
     converged count once an iteration."""
-    n, k = x.shape
+    k = x.shape[1]
+    n = _rows(x)
     if k == 0:
         raise ValueError(f"must have search dim > 0, got {k}")
     if k * 5 >= n:
@@ -193,7 +220,7 @@ def _lobpcg_standard(a: Callable, x: torch.Tensor, max_iter: int, tol: Optional[
     if ax.shape != x.shape or ax.dtype != x.dtype:
         raise ValueError(f"the operator maps {tuple(x.shape)} {x.dtype} to "
                          f"{tuple(ax.shape)} {ax.dtype}")
-    theta = torch.sum(x * ax, dim=0, keepdim=True)
+    theta = row_sum(x * ax, dim=0, keepdim=True)
     r = ax - theta * x
 
     i = 0
@@ -205,12 +232,12 @@ def _lobpcg_standard(a: Callable, x: torch.Tensor, max_iter: int, tol: Optional[
         b = q[:, :k]
         b = b / torch.linalg.norm(b, dim=0, keepdim=True)
         x = xpr @ b
-        x = x / torch.linalg.norm(x, dim=0, keepdim=True)
+        x = x / row_norm(x, dim=0, keepdim=True)
         # P: orthogonalize vstack(0, Q[k:, :k]) against Q[:, :k] in the
         # standard basis through the quadrant Q[:k, k:], then map with XPR
         qp, _ = torch.linalg.qr(q[:k, k:].T)
-        p = xpr @ (q[:, k:] @ qp)
-        norm_p = torch.linalg.norm(p, dim=0, keepdim=True)
+        p = xpr @ (q[:, k:] @ replicate(qp))
+        norm_p = row_norm(p, dim=0, keepdim=True)
         p = p / torch.where(norm_p == 0, 1.0, norm_p)
         ax = a(x)
         theta = theta[None, :k]
@@ -218,8 +245,8 @@ def _lobpcg_standard(a: Callable, x: torch.Tensor, max_iter: int, tol: Optional[
         i += 1
         if tol > 0:
             # self-consistency: |r| against the f32 error of computing it
-            reltol = (torch.linalg.norm(ax, dim=0) + theta[0]) * n * 10
-            if int(torch.sum(torch.linalg.norm(r, dim=0) < tol * reltol)) >= k:
+            reltol = (row_norm(ax, dim=0) + theta[0]) * n * 10
+            if int(torch.sum(row_norm(r, dim=0) < tol * reltol)) >= k:
                 break
     return theta[0, :], x, i
 
@@ -258,8 +285,9 @@ def _whiten(x):
     """Gram-eigh orthonormalization, twice for f32 stability. Near-null
     directions of the Gram are clamped, not fatal."""
     for _ in range(2):
-        g = x.T @ x
+        g = row_gram(x, x)
         lam, q = torch.linalg.eigh((g + g.T) / 2.0)
+        lam, q = replicate(lam, q)
         lam = torch.maximum(lam, 1e-12 * torch.max(lam))
         x = x @ (q / torch.sqrt(lam)[None, :])
     return x
@@ -302,7 +330,7 @@ def chebyshev_filtered_smallest(
             for _ in range(1, chunk):
                 y_next = (2.0 / e) * (matvec(y) - c * y) - y_prev
                 # consistent pair rescale keeps the recurrence exact
-                s = torch.clamp(torch.max(torch.abs(y_next)), min=1e-30)
+                s = torch.clamp(row_max(torch.abs(y_next)), min=1e-30)
                 y_prev, y = y / s, y_next / s
             x = _whiten(y)
         return x
@@ -310,9 +338,10 @@ def chebyshev_filtered_smallest(
     def rayleigh_ritz(x):
         x = _whiten(x)
         ax = matvec(x)
-        h = x.T @ ax
+        h = row_gram(x, ax)
         h = (h + h.T) / 2.0
         vals, w = torch.linalg.eigh(h)
+        vals, w = replicate(vals, w)
         return vals, x @ w
 
     x = x0

@@ -22,10 +22,13 @@
 
 Each factory here returns an ``ops.operator.Operator``: the matvec [n, B] ->
 [n, B] together with the tensors it depends on, which the solvers of
-``ops.cg`` and ``ops.slq`` need to return their gradients.
+``ops.cg`` and ``ops.slq`` need to return their gradients. On a row-sharded
+operator (``Operator.mesh``) the wrappers keep the mesh, and the scalars
+they add enter the sharded computation through ``Operator.entered``.
 
-Not ported yet: the masked (row-sharded) Schur complement
-``make_schur_matvec_masked`` of the multi-GPU path.
+``make_schur_matvec_masked`` is the Schur complement in full-length masked
+form, made of elementwise masks only: the form the row-sharded (multi-GPU)
+model uses.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import row_max
 from .block_sparse import BlockLayout
 from .graph import SparseGraph
 from .laplacian import LaplacianCoeffs, incident_sum, laplacian_matvec
@@ -243,14 +247,15 @@ def noisy_scaled_diag(diag_q: torch.Tensor, scale=None, noise=None) -> torch.Ten
     """Push a Q-diagonal estimate through the Scale and truncated-Neumann
     Noise wrappers (diagonal part only): q -> s*q -> q(1 - s2 q (1 - s2 q)).
     Clamped away from zero so the Jacobi preconditioner stays SPD even where
-    the Neumann truncation would cross zero."""
+    the Neumann truncation would cross zero (relative to the largest entry
+    over every rank's rows, on a mesh)."""
     d = diag_q
     if scale is not None:
         d = d * scale.reshape(())
     if noise is not None:
         s2 = noise.reshape(())
         d = d * (1.0 - s2 * d * (1.0 - s2 * d))
-    return torch.maximum(d, 1e-12 * torch.max(torch.abs(diag_q)))
+    return torch.maximum(d, 1e-12 * row_max(torch.abs(diag_q)))
 
 
 def make_jacobi_precond(diag: torch.Tensor):
@@ -268,27 +273,27 @@ def _scalar_tensor(x):
 
 def make_scaled_matvec(matvec, scale, inverse_scale: bool = False) -> Operator:
     op = as_operator(matvec)
-    scale = _scalar_tensor(scale)
+    scale = op.entered(_scalar_tensor(scale))
 
     def mv(v, *consts):
         s = consts[-1].reshape(())
         out = op.fn(v, *consts[:-1])
         return out / s if inverse_scale else out * s
 
-    return Operator(mv, (*op.consts, scale))
+    return Operator(mv, (*op.consts, scale), mesh=op.mesh)
 
 
 def make_noisy_matvec(matvec, noise) -> Operator:
     """Truncated-Neumann noisy precision Q - s2 Q^2 + s2^2 Q^3."""
     op = as_operator(matvec)
-    noise = _scalar_tensor(noise)
+    noise = op.entered(_scalar_tensor(noise))
 
     def mv(v, *consts):
         s2 = consts[-1].reshape(())
         q = lambda u: op.fn(u, *consts[:-1])  # noqa: E731
         return q(v - s2 * q(v - s2 * q(v)))
 
-    return Operator(mv, (*op.consts, noise))
+    return Operator(mv, (*op.consts, noise), mesh=op.mesh)
 
 
 def make_schur_matvec(
@@ -344,11 +349,52 @@ def make_schur_matvec(
     return Operator(fn, base.consts)
 
 
-def make_schur_matvec_masked(*args, **kwargs):
-    raise NotImplementedError(
-        "make_schur_matvec_masked: the row-sharded Schur complement belongs to "
-        "the multi-GPU path, not ported yet (ROADMAP queue 1, 'Multi-GPU, last')"
-    )
+def make_schur_matvec_masked(
+    base_matvec,
+    mask_labeled: torch.Tensor,
+    mask_unlabeled: torch.Tensor,
+    cg_tol: float = 1e-2,
+    cg_max_iter: int = 1000,
+    precond_diag: Optional[torch.Tensor] = None,
+) -> Operator:
+    """Full-space masked Schur complement, the shard-friendly form: on
+    full-length vectors supported on the labeled rows, with M_l / M_u the
+    0/1 row masks,
+
+        S v = M_l (Q v - Q M_u sol),   (M_u Q M_u + (I - M_u)) sol = M_u Q v,
+
+    which equals Q_ll - Q_lu Q_uu^{-1} Q_ul embedded at the labeled rows
+    (the identity on the complement keeps the inner operator SPD and the
+    solution supported on the unlabeled rows). Every step is an
+    elementwise mask, so on a row-sharded base operator the whole nested
+    solve stays on each rank's rows. ``precond_diag``: the base operator's
+    diagonal on the same rows; the inner CG then runs Jacobi-preconditioned
+    (1.0 off the unlabeled rows; detached). Shares the base operator's
+    ``consts`` and mesh, as ``make_schur_matvec`` does."""
+    from .cg import cg_solve
+
+    base = as_operator(base_matvec)
+    ml = mask_labeled[:, None]
+    mu = mask_unlabeled[:, None]
+    inner_precond = None
+    if precond_diag is not None:
+        d = precond_diag.detach()
+        inner_precond = make_jacobi_precond(torch.where(mask_unlabeled > 0, d,
+                                                        torch.ones_like(d)))
+
+    def inner_fn(u, *consts):
+        return mu * base.fn(mu * u, *consts) + (1.0 - mu) * u
+
+    def fn(v, *consts):
+        squeeze = v.dim() == 1
+        vv = v[:, None] if squeeze else v
+        t = base.fn(ml * vv, *consts)
+        sol = cg_solve(Operator(inner_fn, consts, mesh=base.mesh), mu * t, tol=cg_tol,
+                       max_iter=cg_max_iter, precond=inner_precond, log_label="schur_inner")
+        out = ml * (t - base.fn(mu * sol, *consts))
+        return out[:, 0] if squeeze else out
+
+    return Operator(fn, base.consts, mesh=base.mesh)
 
 
 def labeled_split(labeled_mask):

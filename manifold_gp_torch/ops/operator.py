@@ -9,6 +9,12 @@ receives as inputs. So every matvec factory of the port returns an
 tensors (hyperparameters, Laplacian coefficients, panels) it reads.
 Wrappers compose by appending to ``consts``; the solvers pass ``consts``
 into their Functions and differentiate ``fn`` with respect to them.
+
+``mesh``: the ``parallel.mesh.Mesh`` of a row-sharded operator (None on one
+device). Its vectors are this rank's rows; a replicated tensor a wrapper
+appends to ``consts`` passes through ``parallel.mesh.enter_sharded`` first
+(``Operator.entered``), so that its gradient sums every rank's partial
+cotangent.
 """
 
 from __future__ import annotations
@@ -22,14 +28,24 @@ class Operator:
     """Linear map ``v -> fn(v, *consts)``; call it like the closure it
     replaces."""
 
-    __slots__ = ("fn", "consts")
+    __slots__ = ("fn", "consts", "mesh")
 
-    def __init__(self, fn: Callable, consts: Sequence[torch.Tensor] = ()):
+    def __init__(self, fn: Callable, consts: Sequence[torch.Tensor] = (), mesh=None):
         self.fn = fn
         self.consts = tuple(consts)
+        self.mesh = mesh
 
     def __call__(self, v):
         return self.fn(v, *self.consts)
+
+    def entered(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, a replicated tensor about to join ``consts``, as the
+        sharded computation takes it (itself on one device)."""
+        if self.mesh is None:
+            return t
+        from ..parallel.mesh import enter_sharded
+
+        return enter_sharded(t, self.mesh)
 
 
 def as_operator(matvec) -> Operator:

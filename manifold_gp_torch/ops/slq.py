@@ -17,6 +17,12 @@ The preconditioned quadrature (``slq_logdet_mbcg``, GPyTorch's mBCG
 log-det) draws its probes from the preconditioner M, reads the
 tridiagonalization of M^{-1/2} Q M^{-1/2} off a fixed number of PCG steps
 (``pcg_tridiag_batched``) and adds log det M.
+
+Row-sharded operators (``parallel``): the probes are this rank's rows of
+support-embedded global probes, every sum over rows is
+``parallel.mesh.row_sum``, and the trace dimension is the true node count
+(``num_nodes``); the Functions re-enter their forward's mesh context in the
+backward.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel.mesh import active_mesh, row_sum, use_mesh
 from .cg import cg_raw, consts_cotangents
 from .operator import as_operator
 
@@ -51,9 +58,9 @@ def lanczos_batched(matvec: Callable, q0: torch.Tensor, num_steps: int):
     alphas, betas, valid = [], [], []
     for _ in range(num_steps):
         w = matvec(q)
-        alpha = torch.sum(q * w, dim=0)
+        alpha = row_sum(q * w, dim=0)
         w = w - alpha[None, :] * q - beta_prev[None, :] * q_prev
-        beta = torch.sqrt(torch.sum(w * w, dim=0))
+        beta = torch.sqrt(row_sum(w * w, dim=0))
         alive_next = alive & (beta > _BREAKDOWN_TOL)
         safe_beta = torch.where(alive_next, beta, torch.ones_like(beta))
         q_next = torch.where(alive_next[None, :], w / safe_beta[None, :], torch.zeros_like(w))
@@ -86,7 +93,7 @@ def slq_logdet_raw(matvec, probes, num_steps: int, num_nodes: Optional[int] = No
     ``num_nodes``: Hutchinson trace dimension; defaults to the probe length.
     Pass the true node count when probes are zero-padded."""
     n = probes.shape[0] if num_nodes is None else num_nodes
-    q0 = probes / torch.sqrt(torch.sum(probes * probes, dim=0))[None, :]
+    q0 = probes / torch.sqrt(row_sum(probes * probes, dim=0))[None, :]
     alphas, betas, valid = lanczos_batched(matvec, q0, num_steps)
     quad = _tridiag_e1_quadrature(
         alphas, betas, valid, lambda lam: torch.log(torch.clamp(lam, min=1e-20))
@@ -99,6 +106,7 @@ class _SLQLogdet(torch.autograd.Function):
     def forward(ctx, fn, precond, num_steps, cg_tol, cg_max_iter, num_nodes, probes, *consts):
         ctx.fn, ctx.precond = fn, precond
         ctx.cg_tol, ctx.cg_max_iter = cg_tol, cg_max_iter
+        ctx.mesh = active_mesh()
         ctx.save_for_backward(probes, *consts)
         return slq_logdet_raw(lambda v: fn(v, *consts), probes, num_steps, num_nodes=num_nodes)
 
@@ -107,11 +115,12 @@ class _SLQLogdet(torch.autograd.Function):
         probes, *consts = ctx.saved_tensors
         fn = ctx.fn
         p = probes.shape[1]
-        solves = cg_raw(lambda v: fn(v, *consts), probes, ctx.cg_tol, ctx.cg_max_iter,
-                        precond=ctx.precond)
-        # d logdet = (1/p) sum_i (Q^{-1} z_i)' dQ z_i
-        bars = consts_cotangents(fn, probes, consts, ctx.needs_input_grad[7:],
-                                 solves * (g / p))
+        with use_mesh(ctx.mesh):
+            solves = cg_raw(lambda v: fn(v, *consts), probes, ctx.cg_tol, ctx.cg_max_iter,
+                            precond=ctx.precond)
+            # d logdet = (1/p) sum_i (Q^{-1} z_i)' dQ z_i
+            bars = consts_cotangents(fn, probes, consts, ctx.needs_input_grad[7:],
+                                     solves * (g / p))
         return (None, None, None, None, None, None, None, *bars)
 
 
@@ -172,18 +181,18 @@ def pcg_tridiag_batched(matvec: Callable, minv: Callable, b: torch.Tensor, num_s
     r = b
     z = minv(b)
     pvec = z
-    rz = torch.sum(b * z, dim=0)
+    rz = row_sum(b * z, dim=0)
     alive = torch.ones((p,), dtype=torch.bool, device=b.device)
     one = torch.ones_like(rz)
     alphas, betas, valid = [], [], []
     for _ in range(num_steps):
         ap = matvec(pvec)
-        pap = torch.sum(pvec * ap, dim=0)
+        pap = row_sum(pvec * ap, dim=0)
         alive_now = alive & (rz > 1e-30) & (pap > 0.0)
         alpha = torch.where(alive_now, rz / torch.where(alive_now, pap, one), one)
         r = r - alpha[None, :] * ap
         z = minv(r)
-        rz_new = torch.sum(r * z, dim=0)
+        rz_new = row_sum(r * z, dim=0)
         rel = rz_new / torch.where(rz == 0, one, rz)
         beta = torch.where(alive_now, torch.clamp(rel, min=0.0), torch.zeros_like(rel))
         alive = alive_now & (rz_new > 1e-30)
@@ -222,8 +231,9 @@ class _SLQMbcg(torch.autograd.Function):
     def forward(ctx, fn, minv, num_steps, cg_tol, cg_max_iter, zm, zr, mlogdet, *consts):
         ctx.fn, ctx.minv = fn, minv
         ctx.cg_tol, ctx.cg_max_iter = cg_tol, cg_max_iter
+        ctx.mesh = active_mesh()
         ctx.save_for_backward(zr, *consts)
-        gamma = torch.sum(zm * minv(zm), dim=0)  # ||M^{-1/2} z||^2 per probe
+        gamma = row_sum(zm * minv(zm), dim=0)  # ||M^{-1/2} z||^2 per probe
         alphas, betas, valid = pcg_tridiag_batched(lambda v: fn(v, *consts), minv, zm, num_steps)
         quad = _pcg_t_quadrature(alphas, betas, valid,
                                  lambda lam: torch.log(torch.clamp(lam, min=1e-20)))
@@ -234,12 +244,14 @@ class _SLQMbcg(torch.autograd.Function):
         zr, *consts = ctx.saved_tensors
         fn = ctx.fn
         p = zr.shape[1]
-        solves = cg_raw(lambda v: fn(v, *consts), zr, ctx.cg_tol, ctx.cg_max_iter,
-                        precond=ctx.minv)
-        # d logdet(A) = (1/p) sum_i (A^{-1} z_i)' dA z_i with E[z z'] = I; the
-        # preconditioner (and its logdet, which only recenters the estimator)
-        # gets no gradient.
-        bars = consts_cotangents(fn, zr, consts, ctx.needs_input_grad[8:], solves * (g / p))
+        with use_mesh(ctx.mesh):
+            solves = cg_raw(lambda v: fn(v, *consts), zr, ctx.cg_tol, ctx.cg_max_iter,
+                            precond=ctx.minv)
+            # d logdet(A) = (1/p) sum_i (A^{-1} z_i)' dA z_i with E[z z'] = I;
+            # the preconditioner (and its logdet, which only recenters the
+            # estimator) gets no gradient.
+            bars = consts_cotangents(fn, zr, consts, ctx.needs_input_grad[8:],
+                                     solves * (g / p))
         return (None,) * 8 + tuple(bars)
 
 

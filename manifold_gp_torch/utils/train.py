@@ -15,6 +15,11 @@ new raw outputscale in place.
 ``vanilla_train``: the same loop on a vanilla GP's exact marginal
 likelihood, with no outputscale normalization.
 
+On a mesh model (``RiemannGP`` over a mesh kernel) the loop runs as it is
+on every rank: the loss and its gradients are replicated, so the Adam steps
+keep the parameters identical on every rank, and rank 0 alone writes the
+checkpoints.
+
 Randomness: the SLQ probes of epoch e come from ``probes_fn(e)`` when given,
 else from a ``torch.Generator`` seeded with ``seed``; the one-hot indices of
 an average-variance estimate from ``idx_fn(epoch)``, else from a second
@@ -197,14 +202,18 @@ def _train_loop(
         # (and callback generator) already include its effect.
         if next_ckpt is not None and epoch >= next_ckpt:
             from .checkpoint import save_training_state
+            from .metrics import is_host_zero
 
-            save_training_state(
-                checkpoint_path, params, _adam_state(opt, params), epoch, cur_lr, sched_state,
-                generator_state=None if generator is None else generator.get_state(),
-                callback_generator_state=(
-                    None if callback_generator is None else callback_generator.get_state()
-                ),
-            )
+            # on a mesh every rank holds the same state: rank 0 writes it
+            if is_host_zero():
+                save_training_state(
+                    checkpoint_path, params, _adam_state(opt, params), epoch, cur_lr,
+                    sched_state,
+                    generator_state=None if generator is None else generator.get_state(),
+                    callback_generator_state=(
+                        None if callback_generator is None else callback_generator.get_state()
+                    ),
+                )
             next_ckpt = (epoch // checkpoint_every + 1) * checkpoint_every
     return params, history[-1] if history else float("nan"), history
 

@@ -147,12 +147,44 @@ def test_conjugated_precond_identities():
 
 
 def test_masked_preconditioners_raise_for_the_multi_gpu_path():
-    for fn in (tpc.MaskedDiagPrecond, tpc.MaskedLowRankDiagPrecond, tpc.MaskedDeflationPrecond,
-               tpc.make_pivchol_precond_masked):
-        with pytest.raises(NotImplementedError, match="Multi-GPU"):
-            fn()
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        tpc.make_deflation_precond(torch.eye(4)[:, :2], torch.ones(2), 1.0, mask=torch.ones(4))
+    """The masked (padded row space) preconditioners of the multi-GPU path,
+    ported since the mesh path: on one device they equal JAX's masked
+    classes on the same inputs (apply, logdet), act as the identity off the
+    support, and sample on the support only. The pivoted Cholesky never
+    pivots on a padding row."""
+    rng = np.random.default_rng(21)
+    n, m = 40, 5
+    mask = np.ones(n, np.float32)
+    mask[[3, 17, 29, 38, 39]] = 0.0
+    a = rng.standard_normal((n, 12)).astype(np.float32)
+    dense = (a @ a.T + np.diag(np.linspace(1.0, 9.0, n))).astype(np.float32)
+    dense = dense * mask[:, None] * mask[None, :]
+    d = np.where(mask > 0, np.diagonal(dense), 1.0).astype(np.float32)
+    x = rng.standard_normal((n, 3)).astype(np.float32)
+    v, _ = np.linalg.qr(rng.standard_normal((n, m)) * mask[:, None])
+    v = (v * mask[:, None]).astype(np.float32)
+    q = np.linspace(0.5, 3.0, m).astype(np.float32)
+
+    tm, jm = torch.from_numpy(mask), jnp.asarray(mask)
+    tdiag, jdiag = tpc.MaskedDiagPrecond(d=torch.from_numpy(d), mask=tm), \
+        jpc.MaskedDiagPrecond(d=jnp.asarray(d), mask=jm)
+    tdef = tpc.make_deflation_precond(torch.from_numpy(v), torch.from_numpy(q), 2.0, mask=tm)
+    jdef = jpc.make_deflation_precond(jnp.asarray(v), jnp.asarray(q), 2.0, mask=jm)
+    assert isinstance(tdef, tpc.MaskedDeflationPrecond)
+    top = Operator(lambda u: torch.from_numpy(dense) @ u)
+    tpiv = tpc.make_pivchol_precond_masked(top, torch.from_numpy(d), tm, 6)
+    jpiv = jpc.make_pivchol_precond_masked(lambda u: jnp.asarray(dense) @ u, jnp.asarray(d),
+                                           jm, 6)
+    assert float(torch.abs(tpiv.L[mask == 0]).max()) == 0.0
+    for tp, jp in ((tdiag, jdiag), (tdef, jdef), (tpiv, jpiv)):
+        np.testing.assert_allclose(tp.apply(torch.from_numpy(x)).numpy(),
+                                   np.asarray(jp.apply(jnp.asarray(x))), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(float(tp.logdet()), float(jp.logdet()), rtol=1e-5)
+        off = tp.apply(torch.from_numpy(x)).numpy()[mask == 0]
+        if tp is not tpiv:
+            np.testing.assert_array_equal(off, x[mask == 0])
+        for z in (tp.sample(_gen(3), 4), tp.unit_sample(_gen(4), 4)):
+            assert float(torch.abs(z[torch.from_numpy(mask == 0)]).max()) == 0.0
 
 
 def test_pivchol_invariant_and_no_graph():

@@ -209,11 +209,15 @@ def test_edge_mode_panels_carry_no_gradient_and_bad_inputs_raise(graphs):
                                           grad_space="edge")
     with pytest.raises(ValueError, match="normalization"):
         tmat.make_matern_precision_matvec(tg, tc, 2, LS, "other", block=(tl, None))
-    # the Schur complement composes over the edge-mode operator too; only
-    # its row-sharded (masked) form waits for the multi-GPU path
-    li, ui = tmat.labeled_split(np.arange(tg.num_nodes) % 4 == 0)
+    # the Schur complement composes over the edge-mode operator too, in its
+    # index form and in the masked form of the multi-GPU path
+    labeled = np.arange(tg.num_nodes) % 4 == 0
+    li, ui = tmat.labeled_split(labeled)
     schur = tmat.make_schur_matvec(op, li, ui, tg.num_nodes)
     assert schur.consts == op.consts
     assert torch.all(torch.isfinite(schur(torch.ones(len(li), 2))))
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        tmat.make_schur_matvec_masked(op, None, None)
+    ml = torch.from_numpy(labeled.astype(np.float32))
+    masked = tmat.make_schur_matvec_masked(op, ml, 1.0 - ml)
+    assert masked.consts == op.consts
+    out = masked(ml[:, None] * torch.ones(tg.num_nodes, 2))
+    assert torch.all(torch.isfinite(out)) and torch.all(out[torch.from_numpy(~labeled)] == 0)

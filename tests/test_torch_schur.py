@@ -64,13 +64,40 @@ def _rademacher(n, p, seed=0):
     return (2 * np.random.default_rng(seed).integers(0, 2, (n, p)) - 1).astype(np.float32)
 
 
-def test_labeled_split_and_masked_schur_raises():
+def test_labeled_split_and_masked_schur_raises(graphs):
+    """``labeled_split`` as JAX's; the masked Schur complement (the
+    multi-GPU path's form, ported since the mesh path) equals the
+    index-compacted one at the labeled rows, is zero elsewhere, and matches
+    JAX's masked form on the same inputs."""
     mask = np.array([True, False, False, True, False])
     li, ui = tmat.labeled_split(mask)
     jli, jui = jmat.labeled_split(mask)
     assert li.tolist() == jli.tolist() == [0, 3] and ui.tolist() == jui.tolist() == [1, 2, 4]
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        tmat.make_schur_matvec_masked(None, None, None)
+    jg, tg = graphs
+    n = tg.num_nodes
+    labeled = np.zeros(n, bool)
+    labeled[np.random.default_rng(13).choice(n, 12, replace=False)] = True
+    li, ui = tmat.labeled_split(labeled)
+    ml, mu = labeled.astype(np.float32), (~labeled).astype(np.float32)
+    base = tmat.make_matern_precision_matvec(tg, tlap.laplacian_coeffs(tg, EPS), NU, LS,
+                                             "randomwalk")
+    masked = tmat.make_schur_matvec_masked(base, torch.from_numpy(ml), torch.from_numpy(mu),
+                                           cg_tol=1e-8, cg_max_iter=2000)
+    compact = tmat.make_schur_matvec(base, li, ui, n, cg_tol=1e-8, cg_max_iter=2000)
+    assert all(a is b for a, b in zip(masked.consts, base.consts))
+    v = np.random.default_rng(14).standard_normal((12, 3)).astype(np.float32)
+    full = np.zeros((n, 3), np.float32)
+    full[li] = v
+    got = masked(torch.from_numpy(full)).numpy()
+    want = compact(torch.from_numpy(v)).numpy()
+    scale = np.abs(want).max()
+    assert np.abs(got[li] - want).max() <= 1e-5 * scale
+    assert np.all(got[ui] == 0.0)
+    jbase = jmat.make_matern_precision_matvec(jg, jlap.laplacian_coeffs(jg, EPS), NU, LS,
+                                              "randomwalk")
+    jmv = jmat.make_schur_matvec_masked(jbase, jnp.asarray(ml), jnp.asarray(mu), cg_tol=1e-8,
+                                        cg_max_iter=2000)
+    assert np.abs(got - np.asarray(jmv(jnp.asarray(full)))).max() <= 1e-5 * scale
 
 
 def test_schur_complement(graphs):
