@@ -45,7 +45,8 @@ Phases (any failure exits non-zero before the result line is printed):
      times: kernel (CUDA events around 10 back-to-back launches, median of
      5), plain version, library yardstick
      (one torch.bmm over the pre-gathered operand, used nowhere in the port)
-     and the bound (bytes or operations at the card's published peaks). The
+     and the bound (bytes or operations at the card's published peaks, both
+     from manifold_gp_torch/utils/roofline.py). The
      forward kernel at B = 125 (the basis solve's width; f32, bf16 and x3
      panels) and (4a) at B = 1, 48 and 100 with bf16 panels (the widths and
      panel type of one training gradient; 100 is average_variance's) and
@@ -205,22 +206,41 @@ Phases (any failure exits non-zero before the result line is printed):
      the top modes is printed); the posterior's RMSE vs truth below the
      noise floor; prints gradient and epoch seconds mesh against one
      device, the collectives per gradient and the peak memory;
+  14c. the sharded kNN searches (manifold_gp_torch.parallel.knn) at world
+     size 1 over NCCL: build_graph_sharded on the campaign's 260,096
+     training points (k = 16) with the replicated and the ring schedule,
+     each timed beside phase 13a's exact build, against the exact graph (at
+     most 1e-4 of the edges may differ, in f32 ties only); the sharded IVF
+     search on the campaign's index (2,048 lists, nprobe 16) equal to
+     ivf_search's; phase 14's mesh loss and gradients on a mesh model over
+     the sharded-built graph (bit for bit where the edges are equal);
   14b. both block-ELL kernels at every shard layout of world size 4 (the
      torus graph's tables built in one process, no collective): the forward
-     kernel (bf16 panels at B = 1, 48 and 100, f32 at B = 100 and 300) and
-     K3 (f32 out, B = 1 and 48) on each shard's panels and exchanged window
-     against their plain versions, the stacked shards against the
-     single-device product (K3 on the used panel slots);
+     kernel (bf16 panels at B = 1, 12, 24, 25, 48, 50 and 100, f32 at
+     B = 100 and 300) and K3 (f32 out at B = 1, 12, 24, 25, 48 and 50, bf16
+     out at the probe split's widths 12, 24, 25 and 50) on each shard's
+     panels and exchanged window against their plain versions, the stacked
+     shards against the single-device product (K3 on the used panel slots);
+     then, at the torus's own layout, the forward kernel (bf16 panels, both
+     entry points) and K3 (f32 and bf16 out) at the probe split's widths,
+     each timed with its bound (utils/roofline.py) and torch.bmm;
   14a. world size 2 as two spawned processes sharing the card over gloo
      (the kernels built in phase 1; no rank builds): the 16,384-point torus
      on the fused mesh path; first, in this process, both kernels at its
      two shard layouts as in 14b; then loss and gradients against one
      device at phase 14's tolerances, the halo and gather exchanges within
      1e-6, parameters bit-identical on both ranks after 3 epochs, the
-     LOBPCG basis as in phase 14; a rank that fails or passes 300 s fails
-     the phase (the children are killed).
-Then one JSON line with the kernel table, and the last line
-{"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+     LOBPCG basis as in phase 14; on both ranks build_graph_sharded
+     (replicated) and the sharded IVF search equal to one device's, and the
+     ring schedule raising (gloo has no CUDA send/recv); then the probe
+     split: a single-device model under use_mesh, its 48 probes split
+     24 / 24 and 100 one-hot columns 50 / 50, loss and gradients against one
+     process's at phase 14's tolerances, the average variance at 1e-4, two
+     all-reduces a gradient (printed with its seconds), loss, gradients and
+     parameters after 3 epochs bit-identical on both ranks; a rank that
+     fails or passes 300 s fails the phase (the children are killed).
+Then a line of each phase's seconds, one JSON line with the kernel table,
+and the last line {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
 Imports nothing of JAX or of the JAX package. Needs CUDA and the rest of
 the repository next to this file.
@@ -298,13 +318,7 @@ TIE_SQDIST = 2e-6  # a neighbour tie: f32 rounding of |q|^2 + |x|^2 - 2 q.x at |
 GRAD_REPEATS = 5  # phase 13: loss-and-gradient evaluations held bit for bit
 RESTARTS, RESTART_STEPS = 4, 10  # phase 13b
 
-# Published peaks (NVIDIA data sheets, dense, at the full power limit):
-# HBM bytes/s, f32 FLOP/s outside the tensor cores, bf16 tensor FLOP/s.
-PEAKS = {
-    "H100 PCIe": (2.0e12, 51e12, 756e12),
-    "H100 NVL": (3.9e12, 60e12, 835e12),
-    "H100": (3.35e12, 67e12, 989e12),  # SXM (80GB HBM3)
-}
+PEAK_CARD = "H100"  # the name the bounds' peaks are looked up by (main sets the card's)
 
 
 def fail(msg: str):
@@ -312,11 +326,109 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def peaks_for(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    return "H100 (SXM figures; card not in the table)", PEAKS["H100"]
+PHASE_SECONDS: dict = {}  # "phase 14c" -> its seconds (each phase ends where the next begins)
+_CURRENT_PHASE: list = []
+
+
+def phase(title: str):
+    """Print a phase's header and start its clock (closing the previous
+    phase's into ``PHASE_SECONDS``); ``phase(None)`` closes the last."""
+    now = time.perf_counter()
+    if _CURRENT_PHASE:
+        name, t0 = _CURRENT_PHASE.pop()
+        PHASE_SECONDS[name] = now - t0
+    if title is not None:
+        _CURRENT_PHASE.append((title.split(":")[0], now))
+        print(f"== {title}")
+
+
+def bound(nbytes: int, flops: int, dtype_bytes: int) -> dict:
+    """The bound fields of a record: the larger of the bytes' time at the
+    card's memory rate and the operations' at its peak for their type
+    (``manifold_gp_torch.utils.roofline``)."""
+    from manifold_gp_torch.utils import roofline
+
+    ms, by = roofline.bound_ms(nbytes, flops, dtype_bytes, PEAK_CARD)
+    return {"bound_ms": ms, "bound_by": by, "bytes": nbytes, "flops": flops}
+
+
+def fwd_timing(layout):
+    """``compare``'s ``timing=`` at a block layout: the forward kernel, its
+    plain version and one ``torch.bmm`` over the gathered operand (x3
+    panels have no single library call), with the bound: panels, block ids,
+    operand and output moved once, the panels' products at the peak of
+    their type."""
+    import torch
+
+    from manifold_gp_torch.ops import cuda_spmv
+    from manifold_gp_torch.utils import roofline
+
+    def fwd(bc, panels, pv, s):
+        nrb = layout.num_row_blocks
+        b = pv.shape[1]
+        x3 = panels.dim() == 4
+        mv = roofline.matvec_bytes(layout, b,
+                                   buf_dtype_bytes=panels.element_size() * (2 if x3 else 1))
+        rec = bound(mv["total"] + mv["index"], roofline.matvec_flops(layout, b, 3 if x3 else 1),
+                    4 if panels.dtype == torch.float32 else 2)
+        ms = time_ms(lambda: cuda_spmv.block_matvec(layout, panels, pv))
+        plain_ms = time_ms(lambda: cuda_spmv.block_matvec_plain(bc, panels, pv, s_max=s),
+                           reps=3, runs=2)
+        library_ms = None
+        if not x3:
+            cb = pv.reshape(-1, 128, b).index_select(0, bc).reshape(nrb, s * 128, b)
+            cb = cb.to(panels.dtype)
+            library_ms = time_ms(lambda: torch.bmm(panels, cb))
+            del cb
+        return {"panels": "float32x3" if x3 else str(panels.dtype).replace("torch.", ""),
+                "batch_tile": cuda_spmv._batch_tile(b),
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **rec}
+
+    return fwd
+
+
+def bwd_timing(layout, edge_gather: bool = True):
+    """``compare_bwd``'s ``timing=`` at a block layout: K3, its plain
+    version and one ``torch.bmm``, with the bound (the panel-sized output
+    written once, the cotangent, operand and block ids read once; the
+    products at the peak of the output's type) and, with f32 output and
+    ``edge_gather``, the edge path's gather after it."""
+    import torch
+
+    from manifold_gp_torch.ops import cuda_spmv
+    from manifold_gp_torch.utils import roofline
+
+    def bwd(bc, g, pv, s, out_dtype):
+        nrb = layout.num_row_blocks
+        b = pv.shape[1]
+        ob = 4 if out_dtype == torch.float32 else 2
+        rec = bound(roofline.bwd_blocks_bytes(layout, b, out_dtype_bytes=ob)["total"],
+                    roofline.block_matvec_flops(layout, b), ob)
+
+        def kernel():
+            cuda_spmv.block_bwd_blocks(layout, g, pv, out_dtype=out_dtype)
+
+        def plain():
+            cuda_spmv.bwd_blocks_plain(bc, g, pv, s_max=s, out_dtype=out_dtype)
+
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, reps=3, runs=2)
+        cb = pv.reshape(-1, 128, b).index_select(0, bc).reshape(nrb, s * 128, b)
+        cbt = cb.to(out_dtype).transpose(1, 2)
+        g3 = g.reshape(nrb, 128, b).to(out_dtype)
+        del cb
+        library_ms = time_ms(lambda: torch.bmm(g3, cbt))
+        del cbt, g3
+        gather_ms = None
+        if out_dtype == torch.float32 and edge_gather:  # what the edge path does with K3's output
+            flat = cuda_spmv.block_bwd_blocks(layout, g, pv).reshape(-1)
+            gather_ms = time_ms(lambda: (flat[layout.edge_flat], flat[layout.diag_flat]))
+            del flat
+        torch.cuda.empty_cache()
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "edge_gather_ms": gather_ms, **rec}
+
+    return bwd
 
 
 def time_ms(fn, reps: int = 5, runs: int = 10) -> float:
@@ -763,7 +875,7 @@ def reference_protocols(dev) -> dict:
     report = {}
 
     # -- phase 11: SRMNIST semisupervised at 10,010 points --------------------
-    print("== phase 11: srmnist10k-semisup (the notebook protocol, 100 epochs)")
+    phase("phase 11: srmnist10k-semisup (the notebook protocol, 100 epochs)")
     dpins = json.loads((ROOT / "examples_torch" / "dataset_pins.json").read_text())
     cg_ops.iteration_log = None
     torch.cuda.empty_cache()
@@ -825,7 +937,7 @@ def reference_protocols(dev) -> dict:
         smodel, sparams, "srmnist", (1, 64, LOBPCG_MODES, 3 * LOBPCG_MODES), (1, 64, 100), 11, dev)
     del handles, smodel, sparams
 
-    print("== phase 11a: SRMNIST supervised (100 labeled, dense, 500 epochs)")
+    phase("phase 11a: SRMNIST supervised (100 labeled, dense, 500 epochs)")
     rp.reset_launch_counts()
     srm_sup = run_rmnist("supervised", device=dev, cache_dir=cache.name)
     srm_sup_launches = rp.launch_snapshot()
@@ -849,7 +961,7 @@ def reference_protocols(dev) -> dict:
         fail(f"SRMNIST supervised check-pins: {sup_failures}")
 
     # -- phase 11b: the 1-D dumbbell at the reference's pretrained values -------
-    print("== phase 11b: dumbbell-pretrained vs the JAX pins (examples_torch/dataset_pins.json)")
+    phase("phase 11b: dumbbell-pretrained vs the JAX pins (examples_torch/dataset_pins.json)")
     ppins = dpins["dumbbell_pretrained"]
     wpin = ppins["f64_witness"]
     jax_idx = np.asarray(ppins["knn_idx"])
@@ -914,7 +1026,7 @@ def reference_protocols(dev) -> dict:
         fail(f"dumbbell pretrained evaluation: {pre_fail}")
 
     # -- phase 12: the dragon mesh, supervised on block-ELL ---------------------
-    print("== phase 12: dragon4k (run_2d.py, 100 epochs)")
+    phase("phase 12: dragon4k (run_2d.py, 100 epochs)")
     torch.cuda.empty_cache()
     handles = {}
     rp.reset_launch_counts()
@@ -1000,7 +1112,7 @@ def production_campaign(dev) -> tuple:
     report = {}
 
     # -- phase 13: the torus campaign, twice, one fresh cache ------------------
-    print("== phase 13: the 262,144-point torus campaign (run_campaign) twice in one fresh cache")
+    phase("phase 13: the 262,144-point torus campaign (run_campaign) twice in one fresh cache")
     torch.cuda.empty_cache()
     cache = tempfile.mkdtemp(prefix="mgp_campaign_")
     kw = dict(n=CAMPAIGN_N, manifold="torus", epochs=CAMPAIGN_EPOCHS, checkpoint_every=1,
@@ -1078,7 +1190,7 @@ def production_campaign(dev) -> tuple:
     del model, params
 
     # -- phase 13a: graph backends side by side -------------------------------
-    print("== phase 13a: graph backends on the campaign's training points")
+    phase("phase 13a: graph backends on the campaign's training points")
     torch.cuda.empty_cache()
     train_x = campaign_data(CAMPAIGN_N, 2048, 0, "torus")[0]
     n_tr, k = train_x.shape[0], 16
@@ -1177,7 +1289,7 @@ def production_campaign(dev) -> tuple:
     del xh_t, g_host, g_dev
 
     # -- phase 13b: multi-start training ---------------------------------------
-    print(f"== phase 13b: multi_start_train, {RESTARTS} random restarts x {RESTART_STEPS} steps, "
+    phase(f"phase 13b: multi_start_train, {RESTARTS} random restarts x {RESTART_STEPS} steps, "
           "on the 10,010-point SRMNIST-shaped cloud (k = 50)")
     torch.cuda.empty_cache()
     cmodel = cloud_model(device=dev)
@@ -1255,8 +1367,12 @@ MESH_SHARDS = 4  # phase 14b: the world size whose shard layouts are held
 # the widths the mesh paths run each kernel at: training's bf16 forward at B = 1
 # (the mean solve), 48 (the probes) and 100 (the average variance), the basis's f32
 # forward at B = 100 and 300, and K3 (f32 out) at B = 1 and 48
-MESH_FWD_WIDTHS = {"bfloat16": (1, 48, 100), "float32": (100, 300)}
-MESH_BWD_WIDTHS = (1, 48)
+MESH_FWD_WIDTHS = {"bfloat16": (1, 12, 24, 25, 48, 50, 100), "float32": (100, 300)}
+MESH_BWD_WIDTHS = (1, 12, 24, 25, 48, 50)
+# the probe split's widths (phase 14a): the torus training's 48 probes and 100
+# one-hot columns of the average variance over 2 and 4 ranks; K3 also with bf16 out
+PROBE_SPLIT_WIDTHS = (12, 24, 25, 50)
+PROBE_SPLIT_PROBES, PROBE_SPLIT_ONE_HOT = 48, 100
 
 
 def _mesh_rank_ws2(rank: int, world_size: int, workdir: str):
@@ -1328,9 +1444,104 @@ def _mesh_rank_ws2(rank: int, world_size: int, workdir: str):
     out["seconds"] = time.perf_counter() - t0
     out["forward_launches"] = cuda_spmv.launch_count
     out["bwd_blocks_launches"] = cuda_spmv.bwd_launch_count
+    out["knn"] = _rank_sharded_knn(mesh, data, spec["k"])
+    out["probe"] = _rank_probe_split(mesh, data, spec, cfg, graph, probes)
     (work / f"rank{rank}.json").write_text(json.dumps(out))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
+
+
+def _rank_sharded_knn(mesh, data, k: int) -> dict:
+    """Phase 14a, on a rank: ``build_graph_sharded`` (replicated) on the
+    raw training points against the parent's exact graph, the sharded IVF
+    search on the parent's index against its ``ivf_search``, and the ring
+    schedule, which must raise on a gloo group over CUDA tensors."""
+    import numpy as np
+    import torch
+
+    from manifold_gp_torch.ops.knn import IVFIndex
+    from manifold_gp_torch.parallel import (
+        build_graph_sharded,
+        sharded_ivf_search,
+        sharded_knn_search,
+    )
+
+    dev = mesh.device
+    n = int(data["n"])
+    xr = torch.from_numpy(data["x_raw"]).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = build_graph_sharded(xr, k, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    keys = np.sort(g.rows.cpu().numpy().astype(np.int64) * n + g.cols.cpu().numpy())
+    exact = np.sort(data["rows"].astype(np.int64) * n + data["cols"])
+    index = IVFIndex(centroids=torch.from_numpy(data["ivf_centroids"]).to(dev),
+                     lists=torch.from_numpy(data["ivf_lists"]).to(dev),
+                     list_mask=torch.from_numpy(data["ivf_mask"]).to(dev), database=xr)
+    d, i = sharded_ivf_search(index, xr, k, mesh, nprobe=int(data["ivf_nprobe"]),
+                              self_query=True)
+    ivf_equal = bool(np.array_equal(i.cpu().numpy(), data["ivf_i"])
+                     and np.array_equal(d.cpu().numpy(), data["ivf_d"]))
+    try:
+        sharded_knn_search(xr, xr, k, mesh, schedule="ring")
+        ring = None
+    except RuntimeError as exc:
+        ring = str(exc)
+    return {"build_graph_s": build_s, "num_edges": int(keys.size),
+            "edges_differ": int(np.setxor1d(keys, exact).size), "ivf_equal": ivf_equal,
+            "ring_raised": ring}
+
+
+def _rank_probe_split(mesh, data, spec, cfg, graph, probes) -> dict:
+    """Phase 14a, on a rank: a single-device model on the card under a
+    user's ``use_mesh``: its 48 probe columns split 24 / 24 over the two
+    ranks and its 100 one-hot columns 50 / 50. One loss and gradient (the
+    collectives it took, the seconds of a second one), the average
+    variance, and 3 epochs of training (the parameters' bits)."""
+    import numpy as np
+    import torch
+
+    from examples_torch.run_large import INITIAL_HYPERS, loss_and_grad
+    from manifold_gp_torch import RiemannGP, RiemannMaternKernel
+    from manifold_gp_torch.ops import cuda_spmv
+    from manifold_gp_torch.parallel import mesh as pmesh
+    from manifold_gp_torch.parameters import GreaterThan
+    from manifold_gp_torch.utils import manifold_informed_train
+
+    kernel = RiemannMaternKernel(
+        nu=2, x=data["x"], nearest_neighbors=spec["k"], laplacian_normalization="randomwalk",
+        num_modes=spec["num_modes"], bump_scale=10.0, cfg=cfg, graph=graph,
+        graphbandwidth_constraint=GreaterThan(spec["gb_min"]), device=mesh.device)
+    model = RiemannGP(data["x"], data["y"], kernel, cfg=cfg)
+    idx = torch.from_numpy(data["one_hot_idx"]).to(mesh.device)
+    fwd0, bwd0 = dict(cuda_spmv.launch_count_by_batch), dict(cuda_spmv.bwd_launch_count_by_batch)
+    with pmesh.use_mesh(mesh):
+        pmesh.collective_counts.clear()
+        value, grads = loss_and_grad(model, model.init_params(**INITIAL_HYPERS), probes=probes)
+        per_grad = dict(pmesh.collective_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_and_grad(model, model.init_params(**INITIAL_HYPERS), probes=probes)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        with torch.no_grad():
+            avg = float(model.average_variance(model.init_params(**INITIAL_HYPERS),
+                                               num_rand_vec=PROBE_SPLIT_ONE_HOT, idx=idx))
+        params, _, history = manifold_informed_train(
+            model, model.init_params(**INITIAL_HYPERS), lr=0.1, max_iter=2, tolerance=1e-2,
+            num_rand_vec=PROBE_SPLIT_ONE_HOT, seed=0)
+
+    def delta(now, before):
+        return {str(b): c - before.get(b, 0) for b, c in sorted(now.items())
+                if c - before.get(b, 0)}
+
+    return {"loss": value, "grads": grads, "collectives_per_gradient": per_grad,
+            "grad_s": grad_s, "avg_var": avg, "history": history,
+            "param_bits": {k: np.asarray(v.detach().cpu().numpy(), np.float32).view(
+                np.uint32).tolist() for k, v in params.items()},
+            "forward_by_batch": delta(cuda_spmv.launch_count_by_batch, fwd0),
+            "bwd_by_batch": delta(cuda_spmv.bwd_launch_count_by_batch, bwd0)}
 
 
 def _grad_gap(grads, ref):
@@ -1364,7 +1575,8 @@ def hold_shard_layouts(kernel, params, world_size: int, seed: int) -> tuple:
     """Both block-ELL kernels at every shard layout of ``world_size`` for a
     single-device kernel's graph (tables built in this process, no
     collective): the forward kernel at the mesh paths' panel types and
-    widths (``MESH_FWD_WIDTHS``) and K3 (f32 out, ``MESH_BWD_WIDTHS``) on
+    widths (``MESH_FWD_WIDTHS``) and K3 (f32 out at ``MESH_BWD_WIDTHS``, bf16
+    out at ``PROBE_SPLIT_WIDTHS``) on
     each shard's panels and exchanged window against their plain versions,
     and the stacked shards against the single-device product (K3 on the
     used panel slots). Returns the tables and the records; fails on a
@@ -1398,11 +1610,11 @@ def hold_shard_layouts(kernel, params, world_size: int, seed: int) -> tuple:
         out[tables.row_of_node] = v
         return out
 
-    def held(label, got, want):
+    def held(label, got, want, tol=SMALL_TOL):
         scale = float(want.abs().max())
         rel = float((got.float() - want.float()).abs().max()) / max(scale, 1e-30)
-        ok = bool(torch.isfinite(got).all()) and rel <= SMALL_TOL
-        print(f"  {tag} {label:<44} max_rel_err={rel:.3e} (threshold {SMALL_TOL:.0e}) "
+        ok = bool(torch.isfinite(got).all()) and rel <= tol
+        print(f"  {tag} {label:<44} max_rel_err={rel:.3e} (threshold {tol:.0e}) "
               f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"shard layouts {tag}: {label} rel={rel}")
@@ -1445,29 +1657,35 @@ def hold_shard_layouts(kernel, params, world_size: int, seed: int) -> tuple:
         used[:, 1:] = np.diff(bc, axis=1) > 0
         used = np.cumprod(used, axis=1).astype(bool)
         slot_mask = torch.from_numpy(np.repeat(used, 128, axis=1)).to(dev)[:, None, :]
-        for batch in MESH_BWD_WIDTHS:
-            v = torch.randn((n, batch), generator=gen, device=dev)
-            pv = embed(v)
-            g = torch.randn((tables.rows, batch), generator=gen, device=dev)
-            want_all = cuda_spmv.block_bwd_blocks(layout, g[:layout.num_padded].contiguous(),
-                                                  permute_in(layout, v).contiguous())
-            for sh in shards:
-                window, ids, ncb = _shard_window(tables, sh, pv)
-                gl = g[sh.row_lo:sh.row_lo + sh.lrows]
-                got = _local_bwd_blocks(tables, ids, gl, window, ncb, torch.float32)
-                want = cuda_spmv.bwd_blocks_plain(ids, gl.contiguous(), window,
-                                                  s_max=tables.s_max)
-                rel = held(f"shard {sh.rank} K3 float32 B={batch}", got, want)
-                lo_b = sh.row_lo // 128
-                hi_b = min(lo_b + sh.lrb, layout.num_row_blocks)
-                if hi_b > lo_b:
-                    keep = slot_mask[lo_b:hi_b]
-                    held(f"shard {sh.rank} K3 vs one device (used slots) B={batch}",
-                         got[:hi_b - lo_b] * keep, want_all[lo_b:hi_b] * keep)
-                records.append({"world_size": world_size, "kernel": "K3", "shard": sh.rank,
-                                "batch": batch, "max_rel_err": rel})
-                del got, want
-            del want_all
+        for out_dtype, widths in ((torch.float32, MESH_BWD_WIDTHS),
+                                  (torch.bfloat16, PROBE_SPLIT_WIDTHS)):
+            out_name = str(out_dtype).replace("torch.", "")
+            tol = SMALL_TOL if out_dtype == torch.float32 else BF16_OUT_TOL
+            for batch in widths:
+                v = torch.randn((n, batch), generator=gen, device=dev)
+                pv = embed(v)
+                g = torch.randn((tables.rows, batch), generator=gen, device=dev)
+                want_all = cuda_spmv.block_bwd_blocks(layout, g[:layout.num_padded].contiguous(),
+                                                      permute_in(layout, v).contiguous(),
+                                                      out_dtype=out_dtype)
+                for sh in shards:
+                    window, ids, ncb = _shard_window(tables, sh, pv)
+                    gl = g[sh.row_lo:sh.row_lo + sh.lrows]
+                    got = _local_bwd_blocks(tables, ids, gl, window, ncb, out_dtype)
+                    want = cuda_spmv.bwd_blocks_plain(ids, gl.contiguous(), window,
+                                                      s_max=tables.s_max, out_dtype=out_dtype)
+                    rel = held(f"shard {sh.rank} K3 {out_name} B={batch}", got, want, tol)
+                    lo_b = sh.row_lo // 128
+                    hi_b = min(lo_b + sh.lrb, layout.num_row_blocks)
+                    if hi_b > lo_b:
+                        keep = slot_mask[lo_b:hi_b]
+                        held(f"shard {sh.rank} K3 {out_name} vs one device (used slots) "
+                             f"B={batch}", got[:hi_b - lo_b] * keep, want_all[lo_b:hi_b] * keep,
+                             tol)
+                    records.append({"world_size": world_size, "kernel": "K3", "shard": sh.rank,
+                                    "out": out_name, "batch": batch, "max_rel_err": rel})
+                    del got, want
+                del want_all
     return tables, records
 
 
@@ -1509,7 +1727,146 @@ def row_order_witness(kernel, params, tables):
     return eigval, float(bound)
 
 
-def mesh_phases(dev, smi_line) -> tuple:
+def hold_probe_widths(kernel, params, seed: int) -> list:
+    """The forward kernel (bf16 panels, both entry points) and K3 (f32 and
+    bf16 out, both entry points) against their plain versions at the probe
+    split's widths (``PROBE_SPLIT_WIDTHS``) on ``kernel``'s own block
+    layout, each timed against its bound and one ``torch.bmm``. Returns the
+    records."""
+    import torch
+
+    from manifold_gp_torch.ops.block_sparse import assemble, permute_in
+
+    layout = kernel.block_layout
+    dev = kernel.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fwd, bwd = fwd_timing(layout), bwd_timing(layout, edge_gather=False)
+    records = []
+    with torch.no_grad():
+        c = kernel.coeffs(params)
+        panels = assemble(layout, c.diag, c.triu, dtype=torch.bfloat16)
+        for batch in PROBE_SPLIT_WIDTHS:
+            v = torch.randn((layout.num_nodes, batch), generator=gen, device=dev)
+            pv = permute_in(layout, v).contiguous()
+            rec = compare(layout, panels, pv, "probe split bfloat16", timing=fwd)
+            rec["max_rel_err"] = max(rec[e]["max_rel_err"] for e in
+                                     ("resident_matvec_call", "stream_matvec_call"))
+            records.append(rec)
+            gct = torch.randn((layout.num_padded, batch), generator=gen, device=dev)
+            for out_dtype in (torch.float32, torch.bfloat16):
+                rec = compare_bwd(layout, gct, pv, out_dtype,
+                                  f"probe split bwd {str(out_dtype)[6:]}", timing=bwd)
+                rec["max_rel_err"] = max(rec[e]["max_rel_err"] for e in
+                                         ("bwd_blocks_call", "block_bwd_blocks"))
+                records.append(rec)
+        del panels
+    torch.cuda.empty_cache()
+    for r in records:
+        kind = (f"forward bf16 TB={r['batch_tile']}" if "batch_tile" in r
+                else f"K3 {r['out_dtype']} out class {r['batch_class']}")
+        print(f"    {kind} B={r['batch']}: ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+              f"max_rel_err={r['max_rel_err']:.2e}")
+    return records
+
+
+def sharded_knn_phase(camp, mesh, loss_mesh, grads_mesh, probes, exact_build_s) -> dict:
+    """Phase 14c: on ``mesh`` (world size 1 over NCCL), the campaign's
+    exact graph built again by ``build_graph_sharded`` on both schedules
+    (timed; at most ``EDGE_TIES`` of the edges may differ, in f32 ties
+    only), the campaign's IVF index (2,048 lists, nprobe 16) searched by
+    ``sharded_ivf_search`` against ``ivf_search`` (equal), and phase 14's
+    mesh loss and gradients on a mesh model over the sharded-built graph
+    (bit for bit where the edges are equal, else at the parity
+    tolerances)."""
+    import numpy as np
+    import torch
+
+    from examples_torch.run_large import (
+        INITIAL_HYPERS,
+        build_campaign,
+        campaign_data,
+        campaign_graph_backend,
+        loss_and_grad,
+    )
+    from manifold_gp_torch.ops.knn import ivf_build, ivf_search, knn_search
+    from manifold_gp_torch.parallel import build_graph_sharded, sharded_ivf_search
+    from manifold_gp_torch.parallel import sharded_knn_search
+
+    dev = mesh.device
+    train_x = campaign_data(CAMPAIGN_N, 2048, 0, "torus")[0]
+    xt = torch.from_numpy(train_x).to(dev)
+    k = camp.model.kernel.nearest_neighbors
+    exact = edge_keys(camp.graph)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out = {"n": int(train_x.shape[0]), "k": k, "exact_build_graph_s_13a": exact_build_s}
+    graphs = {}
+    for sched in ("replicated", "ring"):
+        g, secs = timed(lambda: build_graph_sharded(train_x, k, mesh, schedule=sched))
+        graphs[sched] = g
+        keys = edge_keys(g)
+        differ = int(np.setxor1d(keys, exact).size)
+        rec = {"build_graph_s": secs, "num_edges": int(keys.size), "edges_differ": differ,
+               "edges_differ_share": differ / exact.size}
+        if differ:  # where the picks differ, they must be f32 ties
+            _, idx_s = sharded_knn_search(xt, xt, k, mesh, self_query=True, schedule=sched)
+            _, idx_e = knn_search(xt, xt, k, self_query=True)
+            rec.update(knn_tie_gap(train_x, idx_e.cpu().numpy(), idx_s.cpu().numpy()))
+        out[sched] = rec
+        print(f"  build_graph_sharded({sched!r}) {secs:.2f} s (phase 13a's exact build "
+              f"{exact_build_s if exact_build_s is None else round(exact_build_s, 2)} s); "
+              f"{keys.size} edges, {differ} differ from the exact graph's "
+              f"(share {differ / exact.size:.2e}, threshold {EDGE_TIES:.0e})")
+        if differ / exact.size > EDGE_TIES or max(rec.get("host_excess", 0.0),
+                                                   rec.get("device_excess", 0.0)) > TIE_SQDIST:
+            fail(f"phase 14c: the {sched} sharded graph differs from the exact one beyond ties")
+    _, ivf_kw = campaign_graph_backend(train_x.shape[0], dev)
+    index, ivf_build_s = timed(lambda: ivf_build(xt, nlist=ivf_kw["ivf_nlist"],
+                                                 kmeans_iters=ivf_kw["ivf_kmeans_iters"]))
+    (d1, i1), single_s = timed(lambda: ivf_search(index, xt, k, nprobe=ivf_kw["ivf_nprobe"],
+                                                  self_query=True))
+    (d2, i2), sharded_s = timed(lambda: sharded_ivf_search(index, xt, k, mesh,
+                                                           nprobe=ivf_kw["ivf_nprobe"],
+                                                           self_query=True))
+    ivf_equal = bool(torch.equal(i1, i2) and torch.equal(d1, d2))
+    out["ivf"] = {"nlist": index.nlist, "nprobe": ivf_kw["ivf_nprobe"], "build_s": ivf_build_s,
+                  "search_s": single_s, "sharded_search_s": sharded_s, "equal": ivf_equal}
+    print(f"  IVF ({index.nlist} lists, nprobe {ivf_kw['ivf_nprobe']}): sharded search "
+          f"{sharded_s:.2f} s vs {single_s:.2f} s one device; results equal: {ivf_equal}")
+    if not ivf_equal:
+        fail("phase 14c: the sharded IVF search differs from ivf_search")
+    del index, d1, i1, d2, i2, xt
+
+    # phase 14's mesh loss and gradients on the (replicated) sharded-built graph
+    camp_sh = build_campaign(n=CAMPAIGN_N, precond_type="jacobi", mesh=mesh,
+                             graph_builder=lambda x, kk, d: graphs["replicated"])
+    del graphs
+    same_edges = bool(np.array_equal(edge_keys(camp_sh.graph), exact))
+    v, g = loss_and_grad(camp_sh.model, camp_sh.model.init_params(**INITIAL_HYPERS),
+                         probes=probes)
+    loss_rel = abs(v - loss_mesh) / abs(loss_mesh)
+    grad_rel = _grad_gap(g, grads_mesh)
+    bitwise = v == loss_mesh and g == grads_mesh
+    out["mesh_loss"] = {"edges_equal": same_edges, "loss": v, "loss_rel": loss_rel,
+                        "grad_rel_of_max": grad_rel, "bit_for_bit": bitwise}
+    print(f"  mesh loss on the sharded-built graph {v:.7f} vs phase 14's {loss_mesh:.7f}: "
+          f"bit for bit {bitwise} (edges equal: {same_edges}); rel {loss_rel:.2e}, gradients "
+          f"{grad_rel:.2e} of the largest")
+    if (same_edges and not bitwise) or loss_rel > MESH_LOSS_RTOL or grad_rel > MESH_GRAD_RTOL:
+        fail("phase 14c: the mesh loss on the sharded-built graph differs")
+    del camp_sh
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_phases(dev, smi_line, exact_build_s=None) -> tuple:
     """Phases 14, 14a and 14b: the row-sharded multi-GPU path of
     ``manifold_gp_torch.parallel`` at world size 1 over NCCL (full width),
     at world size 2 as two gloo processes sharing the card, and the two
@@ -1527,11 +1884,13 @@ def mesh_phases(dev, smi_line) -> tuple:
         INITIAL_HYPERS,
         EpochLog,
         build_campaign,
+        campaign_data,
         loss_and_grad,
         mesh_twin,
         rademacher_numpy,
     )
     from manifold_gp_torch.ops import cuda_spmv
+    from manifold_gp_torch.ops.knn import default_nlist, ivf_build, ivf_search
     from manifold_gp_torch.parallel import init_distributed, make_mesh
     from manifold_gp_torch.parallel import mesh as pmesh
     from manifold_gp_torch.parallel.block_spmv import exchange_name
@@ -1539,7 +1898,7 @@ def mesh_phases(dev, smi_line) -> tuple:
 
     report = {}
     # -- phase 14: the mesh path at world size 1 over NCCL ---------------------
-    print("== phase 14: the 262,144-point torus on a mesh kernel, world size 1 over NCCL")
+    phase("phase 14: the 262,144-point torus on a mesh kernel, world size 1 over NCCL")
     print(f"  {smi_line}")
     t_phase = time.perf_counter()
     store = tempfile.mkdtemp(prefix="mgp_mesh_")
@@ -1670,21 +2029,29 @@ def mesh_phases(dev, smi_line) -> tuple:
         "noise_floor_rmse": camp.noise_floor_rmse, "seconds": time.perf_counter() - t_phase,
         "card": smi_line,
     }
+
+    # -- phase 14c: the sharded graph builds and IVF search over NCCL ----------
+    phase(f"phase 14c: sharded kNN graph builds and IVF search, world size 1 over NCCL, "
+          f"{CAMPAIGN_N:,}-point torus")
+    report["mesh_knn_ws1"] = sharded_knn_phase(camp, mesh, vm, gm, probes, exact_build_s)
     torch.distributed.destroy_process_group()
     shutil.rmtree(store, ignore_errors=True)
 
     # -- phase 14b: both kernels at every shard layout of world size 4 ---------
-    print(f"== phase 14b: K1 and K3 at the {MESH_SHARDS} shard layouts of the torus")
+    phase(f"phase 14b: K1 and K3 at the {MESH_SHARDS} shard layouts of the torus")
     t0 = time.perf_counter()
     tables4, records = hold_shard_layouts(single.kernel, params_t, MESH_SHARDS, seed=141)
     torch.cuda.empty_cache()
+    print(f"  the probe split's widths B = {PROBE_SPLIT_WIDTHS} at the torus layout, timed")
+    probe_records = hold_probe_widths(single.kernel, params_t, seed=145)
     report["mesh_shards"] = {"world_size": MESH_SHARDS, "halo": tables4.halo,
                              "num_row_blocks": tables4.nrb, "exchange": exchange_name(tables4),
-                             "records": records, "seconds": time.perf_counter() - t0}
+                             "records": records, "probe_width_records": probe_records,
+                             "seconds": time.perf_counter() - t0}
     del tables4
 
     # -- phase 14a: world size 2, two processes sharing the card, gloo ---------
-    print(f"== phase 14a: world size 2 over gloo, two processes on the one card, "
+    phase(f"phase 14a: world size 2 over gloo, two processes on the one card, "
           f"{MESH_WS2_N:,}-point torus")
     t0 = time.perf_counter()
     camp2 = build_campaign(n=MESH_WS2_N, device=dev, precond_type="jacobi")
@@ -1693,6 +2060,11 @@ def mesh_phases(dev, smi_line) -> tuple:
     probes2 = rademacher_numpy(142, n2, camp2.cfg.num_probes)
     v_ref, g_ref = loss_and_grad(ref, ref.init_params(**INITIAL_HYPERS),
                                  probes=torch.from_numpy(probes2).to(dev))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss_and_grad(ref, ref.init_params(**INITIAL_HYPERS), probes=torch.from_numpy(probes2).to(dev))
+    torch.cuda.synchronize()
+    grad_s_ref = time.perf_counter() - t1
     ref.kernel.cfg = ref.kernel.cfg.replace(eigensolver="lobpcg")
     pref = ref.init_params(**CAMPAIGN_HYPERS)
     eig_ref = ref.kernel.eval_basis(pref)[0].cpu().numpy()
@@ -1701,11 +2073,28 @@ def mesh_phases(dev, smi_line) -> tuple:
     eig_w2, bound2 = row_order_witness(ref.kernel, pref, tables2)
     eig_w2 = eig_w2.cpu().numpy()
     del tables2
+    # the sharded searches' references (the raw training points' exact graph is
+    # camp2's) and the probe split's: the average variance on one process
+    x_raw = campaign_data(MESH_WS2_N, 2048, 0, "torus")[0]
+    xr = torch.from_numpy(x_raw).to(dev)
+    index2 = ivf_build(xr, nlist=default_nlist(x_raw.shape[0]))
+    ivf_d, ivf_i = ivf_search(index2, xr, ref.kernel.nearest_neighbors, nprobe=16,
+                              self_query=True)
+    one_hot_idx = np.random.default_rng(144).integers(0, n2, PROBE_SPLIT_ONE_HOT)
+    with torch.no_grad():
+        avg_ref = float(ref.average_variance(ref.init_params(**INITIAL_HYPERS),
+                                             num_rand_vec=PROBE_SPLIT_ONE_HOT,
+                                             idx=torch.from_numpy(one_hot_idx).to(dev)))
     work = pathlib.Path(tempfile.mkdtemp(prefix="mgp_ws2_"))
     g2 = camp2.graph
     np.savez(work / "inputs.npz", rows=g2.rows.cpu().numpy(), cols=g2.cols.cpu().numpy(),
              sqdist=g2.sqdist.cpu().numpy(), n=g2.num_nodes,
-             x=ref.kernel.x.cpu().numpy(), y=ref.train_y.cpu().numpy(), probes=probes2)
+             x=ref.kernel.x.cpu().numpy(), y=ref.train_y.cpu().numpy(), probes=probes2,
+             x_raw=x_raw, ivf_centroids=index2.centroids.cpu().numpy(),
+             ivf_lists=index2.lists.cpu().numpy(), ivf_mask=index2.list_mask.cpu().numpy(),
+             ivf_nprobe=16, ivf_d=ivf_d.cpu().numpy(), ivf_i=ivf_i.cpu().numpy(),
+             one_hot_idx=one_hot_idx)
+    del xr, index2, ivf_d, ivf_i
     import dataclasses as _dc
 
     (work / "spec.json").write_text(json.dumps({
@@ -1761,6 +2150,52 @@ def mesh_phases(dev, smi_line) -> tuple:
         basis_ok = basis_ok and egap <= MESH_EIG_TOL and wgap <= MESH_EIG_TOL
         if not np.isfinite(r["history"]).all():
             fail(f"phase 14a: rank {r['rank']} trained to a non-finite loss")
+    probe_checks = []
+    for r in ranks:
+        kn, pr = r["knn"], r["probe"]
+        lrel = abs(pr["loss"] - v_ref) / abs(v_ref)
+        grel = _grad_gap(pr["grads"], g_ref)
+        arel = abs(pr["avg_var"] - avg_ref) / abs(avg_ref)
+        print(f"  rank {r['rank']} sharded graph (replicated) {kn['build_graph_s']:.2f} s, "
+              f"{kn['edges_differ']} of {kn['num_edges']} edges differ from one device's; "
+              f"sharded IVF equal to ivf_search: {kn['ivf_equal']}; ring over gloo on CUDA "
+              f"raised: {kn['ring_raised']!r}")
+        print(f"  rank {r['rank']} probe split ({PROBE_SPLIT_PROBES // 2} of "
+              f"{PROBE_SPLIT_PROBES} probes, {PROBE_SPLIT_ONE_HOT // 2} of "
+              f"{PROBE_SPLIT_ONE_HOT} one-hot columns): loss {pr['loss']:.7f} vs one process "
+              f"{v_ref:.7f} (rel {lrel:.2e}, threshold {MESH_LOSS_RTOL:.0e}); gradients "
+              f"{grel:.2e} of the largest (threshold {MESH_GRAD_RTOL:.0e}); average variance rel "
+              f"{arel:.2e}; collectives per gradient {pr['collectives_per_gradient']}; gradient "
+              f"{pr['grad_s']:.4f} s (one process {grad_s_ref:.4f} s); forward launches by B "
+              f"{pr['forward_by_batch']}, K3 "
+              f"{pr['bwd_by_batch']}")
+        if kn["edges_differ"] / max(kn["num_edges"], 1) > EDGE_TIES:
+            fail(f"phase 14a: rank {r['rank']}'s sharded graph differs from one device's")
+        if not kn["ivf_equal"]:
+            fail(f"phase 14a: rank {r['rank']}'s sharded IVF differs from ivf_search")
+        if not kn["ring_raised"] or "gloo" not in kn["ring_raised"]:
+            fail("phase 14a: the ring schedule on gloo over CUDA tensors did not raise")
+        if not (lrel <= MESH_LOSS_RTOL and grel <= MESH_GRAD_RTOL and arel <= MESH_LOSS_RTOL):
+            fail(f"phase 14a: rank {r['rank']}'s probe-split loss, gradients or average "
+                 "variance differ from one process's")
+        if pr["collectives_per_gradient"] != {"all_reduce": 2}:
+            fail(f"phase 14a: the probe split took {pr['collectives_per_gradient']} collectives "
+                 "a gradient, not the pair's two all-reduces")
+        widths = {int(b) for b in pr["forward_by_batch"]}
+        if not {PROBE_SPLIT_PROBES // 2, PROBE_SPLIT_ONE_HOT // 2} <= widths or \
+                str(PROBE_SPLIT_PROBES // 2) not in pr["bwd_by_batch"]:
+            fail("phase 14a: the probe split did not launch the kernels at its widths")
+        probe_checks.append({"rank": r["rank"], "loss_rel": lrel, "grad_rel_of_max": grel,
+                             "avg_var_rel": arel, **{k: pr[k] for k in (
+                                 "collectives_per_gradient", "grad_s", "forward_by_batch",
+                                 "bwd_by_batch", "history")}, "knn": kn})
+    probe_same = ranks[0]["probe"]["param_bits"] == ranks[1]["probe"]["param_bits"] and \
+        ranks[0]["probe"]["loss"] == ranks[1]["probe"]["loss"] and \
+        ranks[0]["probe"]["grads"] == ranks[1]["probe"]["grads"]
+    print(f"  probe split: loss, gradients and parameters after 3 epochs bit-identical on both "
+          f"ranks: {probe_same}")
+    if not probe_same:
+        fail("phase 14a: the probe split's ranks differ")
     same = ranks[0]["param_bits"] == ranks[1]["param_bits"] and \
         ranks[0]["auto"]["loss"] == ranks[1]["auto"]["loss"]
     print(f"  parameters after 3 Adam epochs bit-identical on both ranks: {same}; phase "
@@ -1769,9 +2204,13 @@ def mesh_phases(dev, smi_line) -> tuple:
         fail("phase 14a: the two ranks' parameters differ")
     ws2 = {"forward": sum(r["forward_launches"] for r in ranks),
            "bwd_blocks": sum(r["bwd_blocks_launches"] for r in ranks)}
+    split = {"forward": sum(sum(r["probe"]["forward_by_batch"].values()) for r in ranks),
+             "bwd_blocks": sum(sum(r["probe"]["bwd_by_batch"].values()) for r in ranks)}
     if min(ws2.values()) <= 0:
         fail("phase 14a: a kernel of the world-size-2 path was never launched")
     report["mesh_ws2"] = {"n": MESH_WS2_N, "ranks": checks, "params_identical": same,
+                          "probe_split": probe_checks, "probe_split_identical": probe_same,
+                          "avg_var_single": avg_ref, "grad_s_single": grad_s_ref,
                           "loss_single": v_ref, "shard_records": records2,
                           "seconds": time.perf_counter() - t0}
     if not basis_ok:
@@ -1779,11 +2218,13 @@ def mesh_phases(dev, smi_line) -> tuple:
     paths = {
         "forward": {"mesh_train": mesh_train["forward"], "mesh_serve": mesh_serve["forward"],
                     "mesh_serve_by_batch": mesh_serve["forward_by_batch"],
-                    "mesh_ws2": ws2["forward"]},
+                    "mesh_ws2": ws2["forward"], "probe_split_ws2": split["forward"],
+                    "probe_split_ws2_by_batch": ranks[0]["probe"]["forward_by_batch"]},
         "bwd_blocks": {"mesh_train": mesh_train["bwd_blocks"],
-                       "mesh_ws2": ws2["bwd_blocks"]},
+                       "mesh_ws2": ws2["bwd_blocks"], "probe_split_ws2": split["bwd_blocks"],
+                       "probe_split_ws2_by_batch": ranks[0]["probe"]["bwd_by_batch"]},
         "required": [mesh_train["forward"], mesh_train["bwd_blocks"], mesh_serve["forward"],
-                     ws2["forward"], ws2["bwd_blocks"]],
+                     ws2["forward"], ws2["bwd_blocks"], split["forward"], split["bwd_blocks"]],
     }
     return report, paths
 
@@ -1866,13 +2307,21 @@ def main():
         capture_output=True, text=True, timeout=60,
     )
     smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: no output"
-    print("== phase 1: device")
+    phase("phase 1: device")
     print(smi_line)
     kind = torch.cuda.get_device_name(0)
-    peak_key, (hbm_bps, f32_flops, bf16_flops) = peaks_for(kind)
+    global PEAK_CARD
+    from manifold_gp_torch.utils import roofline
+
+    if roofline.card_peaks(kind) is None:
+        peak_key = "H100 (SXM figures; card not in the table)"
+    else:
+        PEAK_CARD = kind
+        peak_key = roofline.card_peaks(kind)[0]
+    hbm_bps, f32_flops, bf16_flops = roofline.card_peaks(PEAK_CARD)[1]
     print(f"torch {torch.__version__} CUDA {torch.version.cuda} device {kind} "
-          f"(peaks: {peak_key}: {hbm_bps / 1e12} TB/s, f32 {f32_flops / 1e12} TFLOP/s, "
-          f"bf16 {bf16_flops / 1e12} TFLOP/s)")
+          f"(peaks, utils/roofline.py: {peak_key}: {hbm_bps / 1e12} TB/s, f32 "
+          f"{f32_flops / 1e12} TFLOP/s, bf16 {bf16_flops / 1e12} TFLOP/s)")
     t0 = time.perf_counter()
     lib_path = cuda_spmv.build_library()
     cuda_spmv._load()
@@ -1886,7 +2335,7 @@ def main():
     dev = torch.device("cuda", 0)
 
     # -- phase 2: kernel vs plain, small layout -----------------------------
-    print("== phase 2: kernel vs plain at a small layout")
+    phase("phase 2: kernel vs plain at a small layout")
     xs, _, _ = torus_points(10_240, seed=1)
     g = build_graph(xs, 16, device=dev)
     small_layout = build_block_layout(g)
@@ -1911,7 +2360,7 @@ def main():
                                          f"small bwd {str(out_dtype)[6:]}"))
     report["small_bwd"] = small_bwd
 
-    print("== phase 2c: DIA band kernel K4 vs plain at small layouts")
+    phase("phase 2c: DIA band kernel K4 vs plain at small layouts")
     small_dia = []
     for n_small in (1500, 10_240):
         xc, _ = curve_points(n_small, seed=1)
@@ -1942,7 +2391,7 @@ def main():
     report["small_dia"] = small_dia
 
     # -- phase 3: the slice at 262,144 points ------------------------------
-    print("== phase 3: serve the 262,144-point torus")
+    phase("phase 3: serve the 262,144-point torus")
     torch.cuda.reset_peak_memory_stats(dev)
     cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = 0
     result, params, model = serve_campaign(n=262_144, device=dev)
@@ -1970,7 +2419,7 @@ def main():
         fail(f"RMSE vs truth {result['rmse_vs_truth']} is not below half the noise floor")
 
     # -- phase 3L: the same torus with the default eigensolver (LOBPCG) -----
-    print("== phase 3L: serve the 262,144-point torus with block LOBPCG (the config default)")
+    phase("phase 3L: serve the 262,144-point torus with block LOBPCG (the config default)")
     from examples_torch.profile_gradient import profile_basis
 
     torch.cuda.empty_cache()
@@ -2028,11 +2477,11 @@ def main():
     torch.cuda.empty_cache()
 
     # -- phase 3M: the SRMNIST-shaped cloud against an f64 ARPACK oracle -----
-    print("== phase 3M: the 10,010-point SRMNIST-shaped cloud, default config, vs ARPACK")
+    phase("phase 3M: the 10,010-point SRMNIST-shaped cloud, default config, vs ARPACK")
     report["cloud_10k"] = cloud_vs_arpack(dev)
 
     # -- phase 4: kernel vs plain at the main path's shapes -----------------
-    print("== phase 4: kernel vs plain at the main path's shapes (B=125)")
+    phase("phase 4: kernel vs plain at the main path's shapes (B=125)")
     kernel = model.kernel
     layout = kernel.block_layout
     main_coeffs = kernel.coeffs(params)
@@ -2040,31 +2489,7 @@ def main():
     pv = permute_in(layout, v).contiguous()
     del v, model
 
-    def timing(bc, panels, pv, s):
-        nrb = layout.num_row_blocks
-        b = pv.shape[1]
-        x3 = panels.dim() == 4
-        macs = nrb * 128 * s * 128 * b
-        flops = (3 if x3 else 1) * 2 * macs
-        rate = f32_flops if panels.dtype == torch.float32 else bf16_flops
-        nbytes = (panels.numel() * panels.element_size() + bc.numel() * 4
-                  + pv.numel() * 4 + nrb * 128 * b * 4)
-        t_bytes, t_ops = nbytes / hbm_bps * 1e3, flops / rate * 1e3
-        ms = time_ms(lambda: cuda_spmv.block_matvec(layout, panels, pv))
-        plain_ms = time_ms(lambda: cuda_spmv.block_matvec_plain(bc, panels, pv, s_max=s),
-                           reps=3, runs=2)
-        library_ms = None
-        if not x3:
-            cb = pv.reshape(-1, 128, b).index_select(0, bc).reshape(nrb, s * 128, b)
-            cb = cb.to(panels.dtype)
-            library_ms = time_ms(lambda: torch.bmm(panels, cb))
-            del cb
-        return {"panels": "float32x3" if x3 else str(panels.dtype).replace("torch.", ""),
-                "batch_tile": cuda_spmv._batch_tile(b),
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "flops": flops}
+    timing = fwd_timing(layout)
 
     main = []
     for dtype, panels in panel_sets(layout, main_coeffs).items():
@@ -2077,7 +2502,7 @@ def main():
         main.append(rec)
     report["main"] = main
 
-    print("== phase 4a: forward kernel at the training path's widths")
+    phase("phase 4a: forward kernel at the training path's widths")
     main_fwd_train = []
     for dtype, batches in (("bfloat16", (1, 48, 100)), ("float32x3", (48,))):
         tpanels = assemble(layout, main_coeffs.diag, main_coeffs.triu,
@@ -2095,7 +2520,7 @@ def main():
         torch.cuda.empty_cache()
     report["main_fwd_train"] = main_fwd_train
 
-    print("== phase 4c: forward kernel with f32 panels at LOBPCG's widths (B = 100, 300)")
+    phase("phase 4c: forward kernel with f32 panels at LOBPCG's widths (B = 100, 300)")
     main_fwd_lobpcg = []
     lpanels = assemble(layout, main_coeffs.diag, main_coeffs.triu)
     for batch in (LOBPCG_MODES, 3 * LOBPCG_MODES):
@@ -2114,43 +2539,9 @@ def main():
     print(f"  B=300 against 3 x B=100: {b300['ms']:.4f} vs {3 * b100['ms']:.4f} ms")
     report["main_fwd_lobpcg"] = main_fwd_lobpcg
 
-    def timing_bwd(bc, g, pv, s, out_dtype):
-        nrb = layout.num_row_blocks
-        b = pv.shape[1]
-        flops = 2 * nrb * 128 * s * 128 * b
-        # every input read once (g, the operand, the ids), the output written once
-        nbytes = (nrb * 128 * s * 128 * (4 if out_dtype == torch.float32 else 2)
-                  + g.numel() * 4 + pv.numel() * 4 + bc.numel() * 4)
-        rate = f32_flops if out_dtype == torch.float32 else bf16_flops
-        t_bytes, t_ops = nbytes / hbm_bps * 1e3, flops / rate * 1e3
+    timing_bwd = bwd_timing(layout)
 
-        def kernel():
-            cuda_spmv.block_bwd_blocks(layout, g, pv, out_dtype=out_dtype)
-
-        def plain():
-            cuda_spmv.bwd_blocks_plain(bc, g, pv, s_max=s, out_dtype=out_dtype)
-
-        ms = time_ms(kernel)
-        plain_ms = time_ms(plain, reps=3, runs=2)
-        cb = pv.reshape(-1, 128, b).index_select(0, bc).reshape(nrb, s * 128, b)
-        cbt = cb.to(out_dtype).transpose(1, 2)
-        g3 = g.reshape(nrb, 128, b).to(out_dtype)
-        del cb
-        library_ms = time_ms(lambda: torch.bmm(g3, cbt))
-        del cbt, g3
-        gather_ms = None
-        if out_dtype == torch.float32:  # what the edge path does with K3's output
-            flat = cuda_spmv.block_bwd_blocks(layout, g, pv).reshape(-1)
-            gather_ms = time_ms(lambda: (flat[layout.edge_flat], flat[layout.diag_flat]))
-            del flat
-        torch.cuda.empty_cache()
-        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "edge_gather_ms": gather_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "flops": flops}
-
-    print("== phase 4b: panel-cotangent kernel vs plain at the training path's shapes")
+    phase("phase 4b: panel-cotangent kernel vs plain at the training path's shapes")
     main_bwd = []
     for batch in (1, 48, 100):
         v = torch.randn((layout.num_nodes, batch), generator=gen, device=dev)
@@ -2173,7 +2564,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- phase 5: 16,384 points against the JAX package's numbers ----------
-    print("== phase 5: serve 16,384 points, held to the JAX pins")
+    phase("phase 5: serve 16,384 points, held to the JAX pins")
     pins = json.loads((ROOT / "examples_torch" / "serve_pins.json").read_text())
     r16, _, _ = serve_campaign(n=pins["n"], device=dev, num_test=pins["num_test"])
     checks = {}
@@ -2201,7 +2592,7 @@ def main():
                                       "eigval": [float(v) for v in lvals]}}
 
     # -- phase 6: the training slice at 262,144 points ----------------------
-    print("== phase 6: train the 262,144-point torus")
+    phase("phase 6: train the 262,144-point torus")
     cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = 0
     tres, tparams, tmodel = train_campaign(
         n=262_144, epochs=3, device=dev,
@@ -2242,7 +2633,7 @@ def main():
         if not tres[name][-1] < tres[name][0]:
             fail(f"the training loss did not fall: {name} {tres[name]}")
 
-    print("== phase 6a: the torus preconditioners side by side")
+    phase("phase 6a: the torus preconditioners side by side")
     from examples_torch.run_large import build_precond
 
     for label, recs in tres["gradients"].items():
@@ -2319,7 +2710,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- phase 7: 16,384-point loss and gradients against the JAX pins -------
-    print("== phase 7: loss and gradients at 16,384 points, held to the JAX pins")
+    phase("phase 7: loss and gradients at 16,384 points, held to the JAX pins")
     tpins = json.loads((ROOT / "examples_torch" / "train_pins.json").read_text())
     raw_names = list(tpins["pins"]["initial"]["grads"])
     parity = {}
@@ -2428,7 +2819,7 @@ def main():
         fail(f"a resumed run does not reproduce the uninterrupted one: {resumed} vs {straight}")
     print(f"  peak memory at 16k: edge {parity['peak_mem_bytes_edge'] / 1e9:.3f} GB, "
           f"panel {parity['peak_mem_bytes_panel'] / 1e9:.3f} GB")
-    print("== phase 7a: loss and gradients at 16,384 points with pivoted Cholesky, "
+    phase("phase 7a: loss and gradients at 16,384 points with pivoted Cholesky, "
           "held to the JAX pins")
     for label, pin in tpins["pins_pivchol"].items():
         loss, grads = by_mode["pivchol"][label]
@@ -2451,7 +2842,7 @@ def main():
     report["train_16k"] = parity
 
     # -- phase 8: the curve training slice at 262,144 points ------------------
-    print("== phase 8: train the 262,144-point curve at k = 8 (DIA bands)")
+    phase("phase 8: train the 262,144-point curve at k = 8 (DIA bands)")
     torch.cuda.empty_cache()
     cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = dia.dia_launch_count = 0
     cres, _, cmodel = train_campaign(n=262_144, epochs=3, device=dev, manifold="curve", k=8)
@@ -2500,7 +2891,7 @@ def main():
     del cmodel
     torch.cuda.empty_cache()
 
-    print("== phase 8a: serve the 262,144-point curve on the host f64 basis")
+    phase("phase 8a: serve the 262,144-point curve on the host f64 basis")
     cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = dia.dia_launch_count = 0
     sres, sparams, smodel = serve_campaign(n=262_144, device=dev, manifold="curve", k=8,
                                            hypers=cres["trained_hypers"])
@@ -2517,28 +2908,23 @@ def main():
         fail(f"curve RMSE vs truth {sres['rmse_vs_truth']} is not below the noise floor")
     report["curve_serve_262k"] = sres
 
-    print("== phase 8b: K4 vs plain at the served curve layout, and DIA vs panels")
+    phase("phase 8b: K4 vs plain at the served curve layout, and DIA vs panels")
     dlayout = smodel.kernel.block_layout
     dcoeffs = smodel.kernel.coeffs(sparams)
     dband = dia.assemble(dlayout, dcoeffs.diag, dcoeffs.triu)
     csr = band_csr(dlayout, dband)
 
     def dia_timing(layout, band, pv, csr=None):
-        npd, d = layout.num_padded, layout.num_offsets
         b = pv.shape[1]
-        nbytes = npd * d * band.element_size() + 2 * npd * b * 4
-        flops = 2 * npd * d * b
-        t_bytes, t_ops = nbytes / hbm_bps * 1e3, flops / f32_flops * 1e3
-        rec = {"ms": time_ms(lambda: dia.dia_matvec_call(layout, band, pv)),
-               "device_ms": graph_ms(lambda: dia.dia_matvec_call(layout, band, pv)),
-               "plain_ms": time_ms(lambda: dia.matvec_permuted(layout, band, pv), reps=3,
-                                   runs=2),
-               "library_ms": None if csr is None else time_ms(lambda: torch.sparse.mm(csr, pv)),
-               "library_device_ms": None if csr is None else graph_ms(
-                   lambda: torch.sparse.mm(csr, pv)),
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bytes": nbytes, "flops": flops}
+        rec = bound(roofline.matvec_bytes(layout, b, buf_dtype_bytes=band.element_size())["total"],
+                    roofline.matvec_flops(layout, b), 4)
+        rec.update({
+            "ms": time_ms(lambda: dia.dia_matvec_call(layout, band, pv)),
+            "device_ms": graph_ms(lambda: dia.dia_matvec_call(layout, band, pv)),
+            "plain_ms": time_ms(lambda: dia.matvec_permuted(layout, band, pv), reps=3, runs=2),
+            "library_ms": None if csr is None else time_ms(lambda: torch.sparse.mm(csr, pv)),
+            "library_device_ms": None if csr is None else graph_ms(
+                lambda: torch.sparse.mm(csr, pv))})
         if csr is not None:
             lib = torch.sparse.mm(csr, pv)
             rec["library_rel_err"] = float((lib - dia.matvec_permuted(layout, band, pv)).abs().max()
@@ -2639,7 +3025,7 @@ def main():
     report["dia_vs_panels"] = crossover
 
     # -- phase 9: 16,384-point curve against the JAX pins -------------------
-    print("== phase 9: the 16,384-point curve, held to the JAX pins")
+    phase("phase 9: the 16,384-point curve, held to the JAX pins")
     cpins = json.loads((ROOT / "examples_torch" / "curve_pins.json").read_text())
     camp = build_campaign(n=cpins["n"], device=dev, num_test=cpins["num_test"], k=cpins["k"],
                           seed=cpins["seed"], manifold="curve",
@@ -2683,7 +3069,7 @@ def main():
                            "num_edges": rec["num_edges"]}
 
     # -- phase 10: the semisupervised spiral at 10,010 points ----------------
-    print("== phase 10: spiral10k-semisup (Schur IMGP, vanilla baseline, blend)")
+    phase("phase 10: spiral10k-semisup (Schur IMGP, vanilla baseline, blend)")
     from examples_torch.profile_gradient import trace_gradient
     from examples_torch.run_spiral import PINS_PATH, check_pins, run_experiment
     from manifold_gp_torch.ops import cg as cg_ops
@@ -2751,7 +3137,7 @@ def main():
         smodel, sparams, "spiral", (1, 64, LOBPCG_MODES, 3 * LOBPCG_MODES), (1, 64), 10, dev)
     del handles, smodel, sparams
 
-    print("== phase 10a: spiral5k-semisup parity (and the vanilla BBMM loss) vs the JAX pins")
+    phase("phase 10a: spiral5k-semisup parity (and the vanilla BBMM loss) vs the JAX pins")
     spins = json.loads((ROOT / "examples_torch" / "semisup_pins.json").read_text())
     cg_ops.iteration_log = None
     parity = semisup_parity(spins, device=dev)
@@ -2782,7 +3168,8 @@ def main():
     report.update(ref_report)
     prod_report, prod_paths = production_campaign(dev)
     report.update(prod_report)
-    mesh_report, mesh_paths = mesh_phases(dev, smi_line)
+    mesh_report, mesh_paths = mesh_phases(
+        dev, smi_line, report["graph_backends"]["exact"]["build_graph_s"])
     report.update(mesh_report)
 
     # -- result --------------------------------------------------------------
@@ -2880,6 +3267,10 @@ def main():
         ],
     }]
     report["kernels"] = kernels
+    phase(None)
+    report["phase_seconds"] = dict(PHASE_SECONDS)
+    print("phase seconds: " + ", ".join(f"{name[6:]} {secs:.1f}"
+                                        for name, secs in PHASE_SECONDS.items()))
     report["total_s"] = time.perf_counter() - t_start
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(report, indent=1))

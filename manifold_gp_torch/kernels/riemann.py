@@ -45,6 +45,7 @@ from ..ops.laplacian import (
     laplacian_matvec,
     out_of_sample,
 )
+from ..parallel.mesh import in_probe_role
 from ..parameters import ConstrainedParam, Positive
 
 
@@ -261,6 +262,7 @@ class RiemannKernel:
         )
 
     # -- spectral basis ----------------------------------------------------
+    @in_probe_role
     @torch.no_grad()
     def eval_basis(self, params):
         """(eigval [m], eigvec [N, m]) of the graph Laplacian, with the
@@ -376,7 +378,9 @@ class RiemannKernel:
         """Out-of-sample features via the Nystrom extension + bump window."""
         x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
         edge_sqdist, edge_idx = self.knn.search(x, self.nearest_neighbors, self_query=False)
-        return self._features_oos(params, basis, edge_sqdist, edge_idx)
+        # an injected index may search on another device (a mesh's)
+        return self._features_oos(params, basis, edge_sqdist.to(self.device),
+                                  edge_idx.to(self.device))
 
     def _features_oos(self, params, basis, edge_sqdist, edge_idx):
         eigval, eigvec = basis

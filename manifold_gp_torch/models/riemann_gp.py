@@ -62,7 +62,14 @@ from ..ops.matern import (
     noisy_scaled_diag,
 )
 from ..ops.operator import Operator
-from ..parallel.mesh import row_sum, use_mesh
+from ..parallel.mesh import (
+    enter_params,
+    in_probe_role,
+    leave_sharded,
+    probe_split,
+    row_sum,
+    use_mesh,
+)
 from ..parameters import ConstrainedParam, GreaterThan, Positive
 
 
@@ -343,6 +350,7 @@ class RiemannGP:
             loss = loss - torch.sum(prior.log_prob(value_fn(params)))
         return loss / n
 
+    @in_probe_role
     def precision_precond_obj(self, params, noise: bool = True, coeffs=None, matvec=None):
         """Preconditioner OBJECT (``ops.pivchol`` protocol: apply / sample /
         logdet) for the composed precision operator, per cfg.precond_type:
@@ -383,6 +391,7 @@ class RiemannGP:
         obj = self.precision_precond_obj(params, noise=noise, coeffs=coeffs, matvec=matvec)
         return None if obj is None else obj.apply
 
+    @in_probe_role
     @torch.no_grad()
     def build_precond(self, params):
         """Freshly built config-selected preconditioner OBJECT for the
@@ -394,6 +403,7 @@ class RiemannGP:
         mv = self.precision_matvec(params, noise=True, coeffs=c)
         return self.precision_precond_obj(params, noise=True, coeffs=c, matvec=mv)
 
+    @in_probe_role
     @torch.no_grad()
     def deflation_precond(self, params, basis=None):
         """Spectral-deflation preconditioner for the composed noisy-scaled
@@ -463,6 +473,7 @@ class RiemannGP:
         return core
 
     # -- training loss -----------------------------------------------------
+    @in_probe_role
     def mll_loss(self, params, generator: Optional[torch.Generator] = None,
                  precond_override=None, probes: Optional[torch.Tensor] = None):
         """Precision-form negative log marginal likelihood:
@@ -477,6 +488,11 @@ class RiemannGP:
         ``precond_override``: a preconditioner object (``ops.pivchol``) to use
         in place of the config-selected one, e.g. one cached across epochs
         (``build_precond``) or ``deflation_precond``'s.
+
+        Under a user's ``use_mesh`` the plain SLQ path splits its probe
+        columns over the ranks (``parallel.mesh``, the probe role): every
+        rank returns the whole loss and, after the backward, the whole
+        gradients.
         """
         if self.mesh is not None:
             return self._mll_loss_sharded(params, generator=generator,
@@ -484,6 +500,16 @@ class RiemannGP:
         n = self.num_data
         y = self.train_y
         cfg = self.cfg
+        # the mBCG quadrature keeps its probes whole (JAX places only the
+        # plain SLQ's); the dense path has none
+        mbcg = cfg.slq_precond_quadrature and (
+            precond_override is not None
+            or (cfg.cg_precondition and cfg.precond_type != "none"))
+        split = None
+        if n > cfg.max_cholesky and not mbcg:
+            split = probe_split(cfg.num_probes if probes is None else probes.shape[1])
+        if split is not None:
+            params = enter_params(params, split)
         # One coefficient computation shared by the operator and the
         # preconditioner.
         c = self.kernel.coeffs(params)
@@ -494,7 +520,7 @@ class RiemannGP:
             if precond_override is not None
             else self.precision_precond_obj(params, noise=True, coeffs=c, matvec=mv)
         )
-        if cfg.slq_precond_quadrature and pobj is not None and n > cfg.max_cholesky:
+        if mbcg and n > cfg.max_cholesky:
             # mBCG: probes from M, PCG-coefficient quadrature on
             # M^{-1/2} Q M^{-1/2}, plus logdet(M) (ops/slq.py).
             from ..ops.slq import slq_logdet_mbcg
@@ -511,16 +537,24 @@ class RiemannGP:
         loss = 0.5 * (quad - ld + n * math.log(2.0 * math.pi))
         for _, prior, value_fn in self.kernel.priors():
             loss = loss - torch.sum(prior.log_prob(value_fn(params)))
+        if split is not None:
+            # this rank's share: its probes' log-det, the replicated terms
+            # divided by the world size; the ranks' shares sum to the loss
+            return leave_sharded(loss / (n * split.world_size), split)
         return loss / n
 
+    @in_probe_role
     def average_variance(self, params, num_rand_vec: int = 100,
                          generator: Optional[torch.Generator] = None, idx=None):
         """Mean diagonal of the *unscaled* kernel-precision inverse (the
         full precision over every graph node, labeled or not), over all
         nodes when num_rand_vec >= N, else over ``num_rand_vec`` nodes
         (``idx``, or drawn from ``generator``)."""
-        mv = self.kernel.precision_matvec(params)
         nn = self.kernel.graph.num_nodes
+        split = probe_split(num_rand_vec) if num_rand_vec < nn else None
+        if split is not None:  # a user's use_mesh: the one-hot columns split over the ranks
+            params = enter_params(params, split)
+        mv = self.kernel.precision_matvec(params)
         if self.mesh is not None:
             return self._average_variance_sharded(mv, params, nn, num_rand_vec, generator, idx)
         precond = (
@@ -528,10 +562,11 @@ class RiemannGP:
             if self.cfg.cg_precondition
             else None
         )
-        return engine.average_variance(
+        out = engine.average_variance(
             mv, nn, num_rand_vec, self.cfg, generator=generator, precond=precond,
             idx=idx, device=self.device,
         )
+        return out if split is None else leave_sharded(out, split)
 
     def _average_variance_sharded(self, mv, params, nn, num_rand_vec, generator, idx):
         """``average_variance`` on the mesh: one-hot columns at the padded
@@ -561,6 +596,7 @@ class RiemannGP:
             return row_sum(torch.sum(rhs * x, dim=1)) / idx.shape[0]
 
     # -- prediction --------------------------------------------------------
+    @in_probe_role
     @torch.no_grad()
     def eval(self, params, love_rank: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
@@ -628,9 +664,11 @@ class RiemannGP:
         d, _ = self.kernel.knn.search(x, 1, self_query=False)
         gb = self.kernel.graphbandwidth(params).reshape(())
         return bump_function(
-            torch.sqrt(d[:, 0]), self.kernel.bump_scale * gb, self.kernel.bump_decay
+            torch.sqrt(d[:, 0].to(self.device)), self.kernel.bump_scale * gb,
+            self.kernel.bump_decay
         )
 
+    @in_probe_role
     @torch.no_grad()
     def posterior(self, params, x, noisy_posterior: bool = False, base_model=None,
                   base_params=None, is_train: Optional[bool] = None) -> Posterior:
@@ -663,6 +701,7 @@ class RiemannGP:
             stddev = stddev + base_scale * base_post.stddev
         return Posterior(mean=mean, covar=covar, stddev=stddev)
 
+    @in_probe_role
     @torch.no_grad()
     def posterior_samples(self, params, x, generator: Optional[torch.Generator],
                           num_samples: int, noisy_posterior: bool = False,

@@ -16,7 +16,9 @@ GPyTorch's GaussianLikelihood default) over a Euclidean kernel
 Up to ``cfg.dense_gram_max_size`` the iterative regime multiplies by a
 gram made once; above it the kernel's tiled ``gram_matvec`` makes the tiles
 anew each product. Randomness (probes, the LOVE start vector) is passed in
-or drawn from an explicit ``torch.Generator``.
+or drawn from an explicit ``torch.Generator``. Under a user's ``use_mesh``
+the methods run in the probe role (``parallel.mesh.probe_role``): every sum
+is local and nothing is split (JAX does not place the mBCG probes).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, InferenceConfig
 from ..ops.operator import Operator
+from ..parallel.mesh import in_probe_role
 from ..parameters import ConstrainedParam, GreaterThan, Positive
 from .riemann_gp import Posterior
 
@@ -100,6 +103,7 @@ class VanillaGP:
         mv, d0 = self._covar_matvec_and_diag(params)
         return mv, make_pivchol_precond(mv, d0, self.cfg.precond_rank)
 
+    @in_probe_role
     def mll_loss(self, params, generator: Optional[torch.Generator] = None,
                  probes=None):
         """Negative exact marginal log likelihood / n: dense Cholesky up to
@@ -127,6 +131,7 @@ class VanillaGP:
                                  probes=probes)
         return 0.5 * (quad + ld + n * math.log(2.0 * math.pi)) / n
 
+    @in_probe_role
     @torch.no_grad()
     def eval(self, params, love_rank: int = 100,
              generator: Optional[torch.Generator] = None,
@@ -166,6 +171,7 @@ class VanillaGP:
         self._cache = dict(alpha=alpha, love=(inv_lam, vecs))
         return self
 
+    @in_probe_role
     @torch.no_grad()
     def posterior(self, params, x, noisy_posterior: bool = False) -> Posterior:
         x = torch.as_tensor(x, dtype=torch.float32).to(self.device)

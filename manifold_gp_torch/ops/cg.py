@@ -29,7 +29,11 @@ Row-sharded operators (``parallel``): every sum over rows is
 ``parallel.mesh.row_sum``, which all-reduces under a mesh context and is
 ``torch.sum`` without one; the solve's Function captures the context in its
 forward and re-enters it in its backward, so the stop test reads a reduced
-value and every rank takes the same branch.
+value and every rank takes the same branch. In the probe role (a
+single-device model's probe columns split over the ranks) the sums are
+local and so is the stop test: a column's value does not depend on when
+the loop stops, since converged columns are frozen, so the ranks need not
+agree on an iteration count.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..parallel.mesh import active_mesh, row_sum, use_mesh
+from ..parallel.mesh import active_context, row_sum, use_context
 from .operator import as_operator
 
 iteration_log: Optional[list] = None
@@ -131,7 +135,7 @@ class _CGSolve(torch.autograd.Function):
         x = cg_raw(lambda v: fn(v, *consts), b, tol, max_iter, precond=precond,
                    log_label=log_label)
         ctx.fn, ctx.precond, ctx.tol, ctx.max_iter = fn, precond, tol, max_iter
-        ctx.log_label, ctx.mesh = log_label, active_mesh()
+        ctx.log_label, ctx.sharding = log_label, active_context()
         ctx.save_for_backward(x, *consts)
         return x
 
@@ -140,7 +144,7 @@ class _CGSolve(torch.autograd.Function):
         x, *consts = ctx.saved_tensors
         fn = ctx.fn
         # A is symmetric for every operator in this framework.
-        with use_mesh(ctx.mesh):
+        with use_context(ctx.sharding):
             lam = cg_raw(lambda v: fn(v, *consts), g.contiguous(), ctx.tol, ctx.max_iter,
                          precond=ctx.precond, log_label=ctx.log_label)
             bars = consts_cotangents(fn, x, consts, ctx.needs_input_grad[6:], -lam)

@@ -6,6 +6,15 @@ large ones go through CG and stochastic Lanczos quadrature. The stochastic
 paths take their randomness from the caller: either the Rademacher probes /
 one-hot indices themselves (so that two packages can share them) or an
 explicit ``torch.Generator`` to draw them from.
+
+Under a single-device model's probe role (``parallel.mesh.probe_role``)
+the stochastic estimates split their probe columns over the ranks where
+JAX places them (``constrain_probes``): the whole batch is drawn or passed
+on every rank, each keeps its own columns, and ``logdet`` /
+``average_variance`` return this rank's part: the log-det estimate over
+its columns (the ranks' mean is the whole estimate), the one-hot sum over
+its columns divided by the whole count (the ranks' sum is the whole
+estimate). The models combine the parts (``models.riemann_gp``).
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ import numpy as np
 import torch
 
 from ..config import InferenceConfig
+from ..parallel.mesh import constrain_probes
 from .cg import cg_solve
 from .slq import rademacher_probes, slq_logdet
 
@@ -48,6 +58,7 @@ def logdet(
         if generator is None:
             raise ValueError("stochastic logdet needs probes or a torch.Generator")
         probes = rademacher_probes(generator, n, cfg.num_probes, device=device)
+    probes = constrain_probes(probes)
     return slq_logdet(
         matvec,
         probes,
@@ -122,5 +133,6 @@ def average_variance(
         idx = idx.to(device=device, dtype=torch.int64)
         rhs = torch.zeros((n, num_rand_vec), dtype=torch.float32, device=device)
         rhs[idx, torch.arange(num_rand_vec, device=device)] = 1.0
+        rhs = constrain_probes(rhs)
         denom = num_rand_vec
     return inv_quad(matvec, rhs, n, cfg, precond=precond) / denom

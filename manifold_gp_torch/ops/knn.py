@@ -323,10 +323,16 @@ class NearestNeighbors:
     """Search index over a fixed point set (the JAX class's surface:
     ``search`` and ``graph``): exact by default, or ``use_ivf=True`` for the
     inverted-file search (``nlist`` default ``default_nlist(N)``, ``nprobe``
-    default max(8, nlist / 8))."""
+    default max(8, nlist / 8)). ``mesh`` (a ``parallel.mesh.Mesh``): search
+    with the query rows sharded over its ranks (``parallel.knn``; the points
+    move to the mesh's device), composed with IVF when both are given."""
 
-    def __init__(self, x, use_ivf: bool = False, nlist: int = None, nprobe: int = None):
+    def __init__(self, x, use_ivf: bool = False, nlist: int = None, nprobe: int = None,
+                 mesh=None):
         self.x = torch.as_tensor(x, dtype=torch.float32)
+        if mesh is not None:
+            self.x = self.x.to(mesh.device)
+        self.mesh = mesh
         self.index = None
         if use_ivf:
             self.index = ivf_build(self.x, nlist=nlist)
@@ -337,15 +343,27 @@ class NearestNeighbors:
         tensor (object identity), the self-match is pinned to column 0."""
         if self_query is None:
             self_query = queries is self.x
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.x.device)
+        q = torch.as_tensor(queries, dtype=torch.float32).to(self.x.device)
+        if self.mesh is not None:
+            from ..parallel.knn import sharded_ivf_search, sharded_knn_search
+
+            if self.index is not None:
+                return sharded_ivf_search(self.index, q, k, self.mesh, nprobe=self.nprobe,
+                                          self_query=self_query)
+            return sharded_knn_search(self.x, q, k, self.mesh, self_query=self_query)
         if self.index is not None:
             return ivf_search(self.index, q, k, nprobe=self.nprobe, self_query=self_query)
         return knn_search(self.x, q, k, self_query)
 
     def graph(self, k: int):
-        """Symmetric kNN graph through this index's search."""
+        """Symmetric kNN graph through this index's search (sharded exact,
+        sharded IVF, IVF or exact)."""
         from .graph import build_graph, symmetrize_knn_edges
 
+        if self.mesh is not None and self.index is None:
+            from ..parallel.knn import build_graph_sharded
+
+            return build_graph_sharded(self.x, k, self.mesh)
         if self.index is not None:
             sqd, idx = self.search(self.x, k, self_query=True)
             return symmetrize_knn_edges(sqd.cpu().numpy(), idx.cpu().numpy(), self.x.shape[0],

@@ -22,7 +22,9 @@ Row-sharded operators (``parallel``): the probes are this rank's rows of
 support-embedded global probes, every sum over rows is
 ``parallel.mesh.row_sum``, and the trace dimension is the true node count
 (``num_nodes``); the Functions re-enter their forward's mesh context in the
-backward.
+backward. Split probe columns (the probe role of ``parallel.mesh``) need
+nothing here: each rank's estimate and its implicit VJP are those of its
+own columns, and the model sums the ranks' shares.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..parallel.mesh import active_mesh, row_sum, use_mesh
+from ..parallel.mesh import active_context, row_sum, use_context
 from .cg import cg_raw, consts_cotangents
 from .operator import as_operator
 
@@ -106,7 +108,7 @@ class _SLQLogdet(torch.autograd.Function):
     def forward(ctx, fn, precond, num_steps, cg_tol, cg_max_iter, num_nodes, probes, *consts):
         ctx.fn, ctx.precond = fn, precond
         ctx.cg_tol, ctx.cg_max_iter = cg_tol, cg_max_iter
-        ctx.mesh = active_mesh()
+        ctx.sharding = active_context()
         ctx.save_for_backward(probes, *consts)
         return slq_logdet_raw(lambda v: fn(v, *consts), probes, num_steps, num_nodes=num_nodes)
 
@@ -115,7 +117,7 @@ class _SLQLogdet(torch.autograd.Function):
         probes, *consts = ctx.saved_tensors
         fn = ctx.fn
         p = probes.shape[1]
-        with use_mesh(ctx.mesh):
+        with use_context(ctx.sharding):
             solves = cg_raw(lambda v: fn(v, *consts), probes, ctx.cg_tol, ctx.cg_max_iter,
                             precond=ctx.precond)
             # d logdet = (1/p) sum_i (Q^{-1} z_i)' dQ z_i
@@ -231,7 +233,7 @@ class _SLQMbcg(torch.autograd.Function):
     def forward(ctx, fn, minv, num_steps, cg_tol, cg_max_iter, zm, zr, mlogdet, *consts):
         ctx.fn, ctx.minv = fn, minv
         ctx.cg_tol, ctx.cg_max_iter = cg_tol, cg_max_iter
-        ctx.mesh = active_mesh()
+        ctx.sharding = active_context()
         ctx.save_for_backward(zr, *consts)
         gamma = row_sum(zm * minv(zm), dim=0)  # ||M^{-1/2} z||^2 per probe
         alphas, betas, valid = pcg_tridiag_batched(lambda v: fn(v, *consts), minv, zm, num_steps)
@@ -244,7 +246,7 @@ class _SLQMbcg(torch.autograd.Function):
         zr, *consts = ctx.saved_tensors
         fn = ctx.fn
         p = zr.shape[1]
-        with use_mesh(ctx.mesh):
+        with use_context(ctx.sharding):
             solves = cg_raw(lambda v: fn(v, *consts), zr, ctx.cg_tol, ctx.cg_max_iter,
                             precond=ctx.minv)
             # d logdet(A) = (1/p) sum_i (A^{-1} z_i)' dA z_i with E[z z'] = I;

@@ -1,16 +1,15 @@
 """Multi-GPU execution on ``torch.distributed`` (port of
-``manifold_gp_tpu.parallel``): one process per GPU, vectors row-sharded
-over the ranks.
+``manifold_gp_tpu.parallel``): one process per GPU.
 
-  * ``mesh``: the process mesh, the sharding context and the row-sharded
-    reductions and autograd pair;
+  * ``mesh``: the process mesh and the sharding context with its two roles:
+    rows (the row-sharded reductions and autograd pair of the mesh kernels)
+    and probes (a single-device model's probe columns split over the ranks
+    under a user's ``use_mesh``);
   * ``spmv``: the row-sharded ELL gather scan (no kernel);
   * ``block_spmv``: the row-sharded fused block-ELL path on the port's
-    CUDA kernels (K1/K2 forward, K3 panel cotangent) per shard.
-
-Not ported yet (ROADMAP, "Sharded kNN and probe-axis sharding"): the
-sharded exact and IVF searches of ``parallel/knn.py``; their three names
-raise ``NotImplementedError``.
+    CUDA kernels (K1/K2 forward, K3 panel cotangent) per shard;
+  * ``knn``: the exact kNN search (replicated or ring database), the graph
+    build and the IVF search with the query rows sharded over the ranks.
 """
 
 from .mesh import (
@@ -23,28 +22,13 @@ from .mesh import (
     make_mesh,
     use_mesh,
 )
+from .knn import build_graph_sharded, sharded_ivf_search, sharded_knn_search
 from .spmv import (
     make_sharded_matern_precision_matvec,
     pad_nodes,
     shard_graph_rows,
     sharded_adjacency_matvec,
 )
-
-
-def _sharded_search(name: str):
-    def missing(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: the sharded kNN search is not ported yet (ROADMAP, "
-            "'Sharded kNN and probe-axis sharding'); build the graph on one device "
-            "(ops.graph.build_graph) and pass it to the mesh kernel as graph=")
-
-    missing.__name__ = name
-    return missing
-
-
-build_graph_sharded = _sharded_search("build_graph_sharded")
-sharded_ivf_search = _sharded_search("sharded_ivf_search")
-sharded_knn_search = _sharded_search("sharded_knn_search")
 
 __all__ = [
     "build_graph_sharded",

@@ -8,10 +8,10 @@ on the CPU), and every rank holds only its own contiguous rows of a
 row-sharded vector. What GSPMD inserts is spelled out here:
 
   * ``row_sum`` / ``row_gram`` / ``row_norm`` / ``row_max``: a reduction
-    over the row axis. Under a mesh context (``use_mesh``) the local result
-    is all-reduced; with no mesh they are exactly ``torch.sum``, ``a.T @ b``,
-    ``torch.linalg.norm`` and ``torch.max``, so single-device results stay
-    bit for bit what they were. The solvers of ``ops`` call them at every
+    over the row axis. Under a row-role mesh context (``use_mesh``) the
+    local result is all-reduced; with no mesh (or in the probe role) they
+    are exactly ``torch.sum``, ``a.T @ b``, ``torch.linalg.norm`` and
+    ``torch.max``, so single-device results stay bit for bit what they were. The solvers of ``ops`` call them at every
     sum over rows.
   * ``leave_sharded`` / ``enter_sharded``: the pair that keeps autograd
     right across ranks while the loss is replicated on every rank (the
@@ -27,13 +27,25 @@ row-sharded vector. What GSPMD inserts is spelled out here:
     local rows (no gradient: the served basis).
 
 ``use_mesh(mesh)`` declares that the [N]-leading tensors in its scope are
-row-sharded over ``mesh``. The mesh kernels and models enter it themselves;
-the solvers' autograd Functions capture it in their forward and re-enter it
-in their backward. JAX's ``use_mesh`` also splits the probe axis of
-single-device models (``constrain_probes``); that split is not ported yet
-(ROADMAP, "Sharded kNN and probe-axis sharding"): ``constrain_nodes`` and
-``constrain_probes`` keep their names and return the tensor unchanged,
-which changes no number, as JAX's placement hints change none.
+row-sharded over ``mesh`` (the context's row role). The mesh kernels and
+models enter it themselves; the solvers' autograd Functions capture the
+active context in their forward and re-enter it in their backward
+(``use_context``).
+
+The probe role: JAX's ``use_mesh`` also shards the probe columns of a
+single-device model (``constrain_probes``, a placement hint that changes
+no number). Here it is a real split. A single-device model's methods run
+in ``probe_role()``, which turns an active context into the probe role:
+there every sum over rows is local, and ``constrain_probes`` keeps this
+rank's ``P / world_size`` columns of a probe batch, when the world size
+divides ``P`` (JAX's ``_divisible`` rule; else every rank keeps all of
+them). The probes are drawn or passed whole on every rank. The model then
+holds its loss replicated with the same pair as the rows: its parameters
+enter once through ``enter_params`` (one all-reduce of their gradient in
+the backward), and each rank's share of the loss (its own probes'
+estimate, the replicated terms divided by the world size) leaves through
+``leave_sharded``. Only scalars and parameter-sized tensors are reduced.
+``constrain_nodes`` keeps its name and returns the tensor unchanged.
 
 Collectives: ``Mesh.all_reduce``, ``Mesh.all_gather`` and
 ``Mesh.broadcast`` on the mesh's group; ``collective_counts`` counts the
@@ -41,8 +53,9 @@ calls (by name) since it was last cleared. Both backends run these three
 on CUDA tensors (gloo too, in PyTorch 2.11 built for CUDA 12.8:
 chip_smoke.py phase 14a runs them with two processes on one card), so no
 call is staged through host memory. The operand exchanges use no
-send/recv, which gloo lacks for CUDA tensors (only the ELL scan's ring
-schedule in ``parallel.spmv`` does, on CPU tensors).
+send/recv, which gloo lacks for CUDA tensors (only the ring schedules of
+``parallel.spmv`` and ``parallel.knn`` do: on CPU tensors over gloo, on CUDA
+over NCCL).
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import functools
 import os
 from typing import Optional
 
@@ -150,9 +164,18 @@ def make_mesh(num_devices: Optional[int] = None, device="cuda") -> Mesh:
     return Mesh(group=group, rank=rank, world_size=ws, device=dev)
 
 
+NODE_AXIS = "nodes"
+PROBE_AXIS = "probes"
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardingContext:
+    """An active mesh and the axis it shards: ``NODE_AXIS`` (the rows of
+    a mesh kernel's vectors) or ``PROBE_AXIS`` (the probe columns of a
+    single-device model)."""
+
     mesh: Mesh
+    axis: str = NODE_AXIS
 
 
 _ACTIVE: list = []
@@ -163,23 +186,70 @@ def active_context() -> Optional[ShardingContext]:
 
 
 def active_mesh() -> Optional[Mesh]:
+    """The mesh the rows in scope are sharded over (None outside a
+    row-role context)."""
     ctx = active_context()
-    return None if ctx is None else ctx.mesh
+    return None if ctx is None or ctx.axis != NODE_AXIS else ctx.mesh
 
 
 @contextlib.contextmanager
 def use_mesh(mesh: Optional[Mesh]):
     """Row-shard the reductions of every solver call in scope over ``mesh``
-    (a no-op scope for None)."""
+    (a no-op scope for None). A single-device model takes a user's scope in
+    the probe role (``probe_role``)."""
     if mesh is None:
         yield None
         return
-    ctx = ShardingContext(mesh)
+    with use_context(ShardingContext(mesh)) as ctx:
+        yield ctx
+
+
+@contextlib.contextmanager
+def use_context(ctx: Optional[ShardingContext]):
+    """Re-enter a captured ``active_context()``: a Function's backward runs
+    in its forward's context, whatever is active where the backward is
+    called (None: no context, masking an active one)."""
     _ACTIVE.append(ctx)
     try:
         yield ctx
     finally:
         _ACTIVE.pop()
+
+
+@contextlib.contextmanager
+def probe_role():
+    """The scope of a single-device model's computation: an active
+    context's mesh in the probe role (a no-op scope without one)."""
+    ctx = active_context()
+    if ctx is None or ctx.axis == PROBE_AXIS:
+        yield
+        return
+    with use_context(ShardingContext(ctx.mesh, PROBE_AXIS)):
+        yield
+
+
+def in_probe_role(method):
+    """Run a model's (or kernel's) method in ``probe_role`` unless the
+    object is a mesh one (``self.mesh``), whose own scopes shard rows."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        if getattr(self, "mesh", None) is not None:
+            return method(self, *args, **kwargs)
+        with probe_role():
+            return method(self, *args, **kwargs)
+
+    return wrapped
+
+
+def probe_split(num_columns: int) -> Optional[Mesh]:
+    """The mesh a batch of ``num_columns`` probe columns is split over: the
+    active probe-role context's, when it has more than one rank and its
+    world size divides ``num_columns``; else None (no split)."""
+    ctx = active_context()
+    if ctx is None or ctx.axis != PROBE_AXIS:
+        return None
+    ws = ctx.mesh.world_size
+    return ctx.mesh if ws > 1 and num_columns % ws == 0 else None
 
 
 def constrain_nodes(x):
@@ -189,9 +259,13 @@ def constrain_nodes(x):
 
 
 def constrain_probes(x):
-    """JAX's placement hint for the probe axis (its split is not ported
-    yet): the tensor unchanged."""
-    return x
+    """This rank's columns of a probe batch ``x`` [N, P] under a probe
+    split (``probe_split``), else ``x`` itself."""
+    mesh = probe_split(x.shape[1]) if x.dim() >= 2 else None
+    if mesh is None:
+        return x
+    w = x.shape[1] // mesh.world_size
+    return x[:, mesh.rank * w:(mesh.rank + 1) * w].contiguous()
 
 
 # -- the Megatron pair -------------------------------------------------------
@@ -232,6 +306,16 @@ def enter_sharded(t: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
     if mesh is None or mesh.group is None:
         return t
     return _EnterSharded.apply(mesh, t)
+
+
+def enter_params(params: dict, mesh: Mesh) -> dict:
+    """A dict of replicated tensors entering a sharded computation in one
+    piece: ``enter_sharded`` of their concatenation, so the backward
+    all-reduces one parameter-sized vector."""
+    names = list(params)
+    flat = enter_sharded(torch.cat([params[k].reshape(-1) for k in names]), mesh)
+    parts = torch.split(flat, [params[k].numel() for k in names])
+    return {k: part.view(params[k].shape) for k, part in zip(names, parts)}
 
 
 def all_gather_rows(t: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:

@@ -179,10 +179,14 @@ def _train_loop(
                 out[name] = float(fn(model, params).reshape(()))
         if scheduler is not None:
             cur_lr, sched_state = _sched_update(scheduler, out["loss"], cur_lr, sched_state)
-        if debug and not all(
-            math.isfinite(v) for v in (out["loss"], *(float(p.detach()) for p in params.values()))
-        ):
-            raise FloatingPointError(f"non-finite training state at epoch {epoch}: {out}")
+        if debug:
+            # NaN guard: fail fast with the epoch instead of training on
+            # poisoned parameters for the rest of the run
+            from .debug import check_finite
+
+            if not math.isfinite(out["loss"]):
+                raise FloatingPointError(f"non-finite training loss {out['loss']} at epoch {epoch}")
+            check_finite(params, name=f"params after epoch {epoch}")
         history.append(out["loss"])
         if metrics is not None:
             metrics.record(epoch, **out)

@@ -384,6 +384,137 @@ def scenario_basis(mesh, x, edges, cfg_kw, m, eps, k=6):
     return {"eigval": _np(val), "eigvec": _np(vec), "fused": kernel._mesh_fused is not None}
 
 
+def scenario_probe_split(mesh, x, y, edges, cfg_kw, probes, idx, nu=1):
+    """A single-device model's loss, gradients and average variance under
+    ``use_mesh(mesh)`` (its probe and one-hot columns split over the ranks
+    where the world size divides them) and without a mesh context; whether
+    each batch was split, and the collectives of one loss and gradient."""
+    import contextlib
+
+    import torch
+
+    from manifold_gp_torch import InferenceConfig, RiemannGP, RiemannMaternKernel
+    from manifold_gp_torch.parallel import mesh as pmesh
+
+    cfg = InferenceConfig(**cfg_kw)
+    kernel = RiemannMaternKernel(nu=nu, x=x, nearest_neighbors=6,
+                                 laplacian_normalization="randomwalk", num_modes=10, cfg=cfg,
+                                 graph=_graph(edges), device="cpu")
+    model = RiemannGP(x, y, kernel, cfg=cfg)
+    params = model.init_params(noise=1e-2, outputscale=1.0, graphbandwidth=0.35,
+                               lengthscale=1.0)
+    out = {}
+    with pmesh.use_context(pmesh.ShardingContext(mesh, pmesh.PROBE_AXIS)):
+        out["split"] = [pmesh.probe_split(np.asarray(probes).shape[1]) is not None,
+                        pmesh.probe_split(len(idx)) is not None]
+    for name, scope in (("mesh", pmesh.use_mesh(mesh)), ("single", contextlib.nullcontext())):
+        with scope:
+            pmesh.collective_counts.clear()
+            loss, grads = _loss_and_grads(model, params, probes)
+            collectives = dict(pmesh.collective_counts)
+            with torch.no_grad():
+                avg = model.average_variance(params, num_rand_vec=len(idx),
+                                             idx=torch.as_tensor(idx))
+        out[name] = {"loss": loss, "grads": grads, "avg_var": float(avg),
+                     "collectives": collectives}
+    return out
+
+
+def _edges_np(graph):
+    return {"rows": _np(graph.rows), "cols": _np(graph.cols), "sqdist": _np(graph.sqdist),
+            "ell_col": _np(graph.ell_col), "max_degree": graph.max_degree}
+
+
+def scenario_knn_searches(mesh, cloud, q_oos, db_uneven, q_uneven, db_small, q_small):
+    """The sharded exact search on both schedules (self-query, out-of-sample
+    queries, an uneven database and k above a shard on the ring), the
+    sharded graph build, and ``NearestNeighbors(mesh=)`` alone and with
+    IVF; numpy (sqdist, idx) pairs and edge lists."""
+    from manifold_gp_torch.ops.knn import NearestNeighbors
+    from manifold_gp_torch.parallel import build_graph_sharded, sharded_knn_search
+
+    def search(*args, **kw):
+        return tuple(_np(t) for t in sharded_knn_search(*args, mesh=mesh, **kw))
+
+    out = {}
+    for sched in ("replicated", "ring"):
+        out[f"self_{sched}"] = search(cloud, cloud, 9, self_query=True, schedule=sched,
+                                      block_size=128)
+        out[f"oos_{sched}"] = search(cloud, q_oos, 5, schedule=sched, block_size=64)
+        out[f"graph_{sched}"] = _edges_np(build_graph_sharded(cloud, 8, mesh, schedule=sched))
+    out["uneven_ring"] = search(db_uneven, q_uneven, 7, schedule="ring", block_size=32)
+    out["kbig_ring"] = search(db_small, q_small, 50, schedule="ring", block_size=32)
+    nn = NearestNeighbors(cloud, mesh=mesh)
+    out["nn_search"] = tuple(_np(t) for t in nn.search(nn.x, 6))
+    out["nn_graph"] = _edges_np(nn.graph(6))
+    nn = NearestNeighbors(cloud, use_ivf=True, nlist=32, nprobe=32, mesh=mesh)
+    out["nn_ivf_search"] = tuple(_np(t) for t in nn.search(cloud, 6, self_query=True))
+    out["nn_ivf_graph"] = _edges_np(nn.graph(6))
+    return out
+
+
+def scenario_sharded_ivf(mesh, index, cloud, q_oos, q_pad, k_pad):
+    """The sharded IVF search on a given index (numpy centroids, lists,
+    mask, database) beside the single-device ``ivf_search`` on it: the
+    self-query, out-of-sample queries, a chunked dispatch, and queries
+    whose probed lists hold fewer than k points (padding slots)."""
+    import torch
+
+    from manifold_gp_torch.ops.knn import IVFIndex, ivf_search
+    from manifold_gp_torch.parallel import sharded_ivf_search
+
+    idx = IVFIndex(*(torch.from_numpy(np.asarray(a)) for a in index))
+    idx = IVFIndex(idx.centroids, idx.lists.long(), idx.list_mask, idx.database)
+    cases = {"self": (cloud, 9, 8, True, {}), "oos": (q_oos, 9, 8, False, {}),
+             "chunked": (cloud, 7, 8, True, {"queries_per_dispatch": 512}),
+             "pad": (q_pad, k_pad, 2, False, {})}
+    out = {}
+    for name, (q, k, nprobe, self_query, kw) in cases.items():
+        qt = torch.from_numpy(q)
+        sh = sharded_ivf_search(idx, qt, k, mesh, nprobe=nprobe, self_query=self_query,
+                                block_size=64, **kw)
+        one = ivf_search(idx, qt, k, nprobe=nprobe, self_query=self_query, block_size=64)
+        out[name] = {"sharded": tuple(_np(t) for t in sh), "single": tuple(_np(t) for t in one)}
+    return out
+
+
+def scenario_mesh_graph_model(mesh, x, y, probes, x_oos_n, xs):
+    """The sharded-built graph fed to a single-device kernel (loss beside
+    the kernel's own build), and out-of-sample features through an
+    injected ``NearestNeighbors(mesh=)`` index (posterior beside the
+    default index)."""
+    import torch
+
+    from manifold_gp_torch import InferenceConfig, RiemannGP, RiemannMaternKernel
+    from manifold_gp_torch.ops.knn import NearestNeighbors
+    from manifold_gp_torch.parallel import build_graph_sharded
+
+    cfg = InferenceConfig(max_cholesky=0, num_probes=8, lanczos_max_iter=20, cg_tolerance=1e-3,
+                          cg_max_iter=100)
+    hypers = dict(noise=1e-2, outputscale=1.0, graphbandwidth=0.3, lengthscale=1.0)
+    out = {}
+    for name, graph in (("sharded", build_graph_sharded(x, 6, mesh)), ("own", None)):
+        kernel = RiemannMaternKernel(nu=2, x=x, nearest_neighbors=6,
+                                     laplacian_normalization="randomwalk", num_modes=10, cfg=cfg,
+                                     graph=graph, device="cpu")
+        model = RiemannGP(x, y, kernel, cfg=cfg)
+        with torch.no_grad():
+            out[f"loss_{name}"] = float(model.mll_loss(model.init_params(**hypers),
+                                                       probes=torch.from_numpy(probes)))
+    xo, yo = x[:x_oos_n], y[:x_oos_n]
+    for name, index in (("mesh", NearestNeighbors(xo, mesh=mesh)), ("default", None)):
+        cfg = InferenceConfig()
+        kernel = RiemannMaternKernel(nu=2, x=xo, nearest_neighbors=6,
+                                     laplacian_normalization="randomwalk", num_modes=8, cfg=cfg,
+                                     knn_index=index, device="cpu")
+        model = RiemannGP(xo, yo, kernel, cfg=cfg)
+        params = model.init_params(**hypers)
+        model.eval(params)
+        post = model.posterior(params, xs)
+        out[f"post_{name}"] = (_np(post.mean), _np(post.stddev))
+    return out
+
+
 SCENARIOS = {name[len("scenario_"):]: fn for name, fn in dict(globals()).items()
              if name.startswith("scenario_")}
 

@@ -89,17 +89,26 @@ def test_port_exports_the_jax_public_names(module):
     assert not [n for n in port_mod.__all__ if not hasattr(port_mod, n)]
 
 
-def test_parallel_sharded_search_raises_until_ported():
-    """Of the JAX ``parallel.__all__`` names, only the sharded kNN searches
-    are not ported yet: exactly those three raise, naming the ROADMAP item;
-    every other name is the port's own (``parallel.mesh`` / ``.spmv``)."""
+def test_parallel_sharded_searches_are_ported():
+    """The JAX ``parallel.__all__``'s sharded kNN names are the port's own
+    functions (``parallel.knn``), which run on a one-process mesh; every
+    other name is the port's ``parallel.mesh`` / ``.spmv``."""
     import manifold_gp_tpu.parallel as jpar
     import manifold_gp_torch.parallel as tpar
 
     searches = ("build_graph_sharded", "sharded_ivf_search", "sharded_knn_search")
+    mesh = tpar.make_mesh(device="cpu")
+    x = np.random.default_rng(0).standard_normal((40, 2)).astype(np.float32)
     for name in searches:
-        with pytest.raises(NotImplementedError, match="Sharded kNN and probe-axis sharding"):
-            getattr(tpar, name)(np.zeros((4, 2), np.float32), 2)
+        assert getattr(tpar, name).__module__ == "manifold_gp_torch.parallel.knn", name
+    d, i = tpar.sharded_knn_search(x, x, 3, mesh, self_query=True)
+    np.testing.assert_array_equal(i[:, 0].numpy(), np.arange(40))
+    assert tpar.build_graph_sharded(x, 3, mesh).num_nodes == 40
+    from manifold_gp_torch.ops.knn import ivf_build
+
+    d2, i2 = tpar.sharded_ivf_search(ivf_build(torch.from_numpy(x), nlist=4), x, 3, mesh,
+                                     nprobe=4, self_query=True)
+    np.testing.assert_array_equal(i2.numpy(), i.numpy())
     for name in set(jpar.__all__) - set(searches):
         assert getattr(tpar, name).__module__ in ("manifold_gp_torch.parallel.mesh",
                                                   "manifold_gp_torch.parallel.spmv"), name
