@@ -46,6 +46,7 @@ from ..ops.laplacian import (
     out_of_sample,
 )
 from ..parallel.mesh import in_probe_role
+from ..utils.metrics import count
 from ..parameters import ConstrainedParam, Positive
 
 
@@ -294,6 +295,7 @@ class RiemannKernel:
                 n, m, gershgorin_bound(self.graph, c), self.device,
             )
         eigval = eigval.clone()
+        count("host_sync.basis.first_mode")  # the scalar 0.0 is copied from the host
         eigval[0] = 0.0
         eigvec = eigvec * torch.rsqrt(c.deg)[:, None]
         eigvec = eigvec / torch.linalg.norm(eigvec, dim=0, keepdim=True)

@@ -71,6 +71,7 @@ from ..parallel.mesh import (
     use_mesh,
 )
 from ..parameters import ConstrainedParam, GreaterThan, Positive
+from ..utils.metrics import count, span, spanned
 
 
 @dataclasses.dataclass
@@ -153,6 +154,7 @@ class RiemannGP:
             params["raw_outputscale"] = self._outputscale_decl.init_raw(
                 outputscale, device=self.device
             )
+        count("host_sync.params.init")  # a host scalar copied to the device
         params["mean_constant"] = torch.as_tensor(
             mean_constant, dtype=torch.float32, device=self.device
         )
@@ -474,6 +476,7 @@ class RiemannGP:
 
     # -- training loss -----------------------------------------------------
     @in_probe_role
+    @spanned("imgp.model.mll_loss")
     def mll_loss(self, params, generator: Optional[torch.Generator] = None,
                  precond_override=None, probes: Optional[torch.Tensor] = None):
         """Precision-form negative log marginal likelihood:
@@ -592,11 +595,12 @@ class RiemannGP:
                    if cfg.cg_precondition else None)
         with use_mesh(self.mesh):
             x = cg_solve(mv, rhs, tol=cfg.cg_tolerance, max_iter=cfg.cg_max_iter,
-                         precond=precond)
+                         precond=precond, log_label="avg_var")
             return row_sum(torch.sum(rhs * x, dim=1)) / idx.shape[0]
 
     # -- prediction --------------------------------------------------------
     @in_probe_role
+    @spanned("imgp.model.eval")
     @torch.no_grad()
     def eval(self, params, love_rank: Optional[int] = None,
              generator: Optional[torch.Generator] = None,
@@ -612,11 +616,13 @@ class RiemannGP:
         ``love_v0`` ([n_train]) or drawn from ``generator`` (default: seed 0
         on the model's device).
         """
-        basis = self.kernel.eval_basis(params)
-        if self.train_is_graph:
-            z = self.kernel.features_train(params, basis)
-        else:
-            z = self.kernel.features_test(params, basis, self.train_x)
+        with span("imgp.model.eval_basis"):
+            basis = self.kernel.eval_basis(params)
+        with span("imgp.model.features"):
+            if self.train_is_graph:
+                z = self.kernel.features_train(params, basis)
+            else:
+                z = self.kernel.features_test(params, basis, self.train_x)
         s = (
             self.outputscale(params).reshape(())
             if self.use_outputscale
@@ -627,6 +633,7 @@ class RiemannGP:
         g = z.T @ z
         m = g.shape[0]
         c = (sigma2 / s) * torch.eye(m, dtype=g.dtype, device=g.device) + g
+        count("host_sync.cholesky.eval")  # cholesky checks its info on the host
         chol_c = torch.linalg.cholesky(c)
         resid = self.train_y - mu
         u = z.T @ resid[:, None]
@@ -669,6 +676,7 @@ class RiemannGP:
         )
 
     @in_probe_role
+    @spanned("imgp.model.posterior")
     @torch.no_grad()
     def posterior(self, params, x, noisy_posterior: bool = False, base_model=None,
                   base_params=None, is_train: Optional[bool] = None) -> Posterior:
@@ -676,7 +684,8 @@ class RiemannGP:
         vanilla GP, evaluated at ``base_params``) away from the manifold
         when given; ``is_train=True`` forces the in-sample feature path."""
         cache = self._cache
-        zs = self.kernel.features(params, cache["basis"], x, is_train=is_train)
+        with span("imgp.model.features"):
+            zs = self.kernel.features(params, cache["basis"], x, is_train=is_train)
         mean = cache["mu"] + (zs @ cache["w"][:, None])[:, 0]
         if "love" in cache:
             # LOVE covariance: K** - K*t (V diag(1/lam) V') Kt* with the rank-r
@@ -719,7 +728,8 @@ class RiemannGP:
         from ``generator`` unless passed in.
         """
         cache = self._cache
-        zs = self.kernel.features(params, cache["basis"], x, is_train=is_train)
+        with span("imgp.model.features"):
+            zs = self.kernel.features(params, cache["basis"], x, is_train=is_train)
         mean = cache["mu"] + (zs @ cache["w"][:, None])[:, 0]
         m = cache["chol_c"].shape[0]
         if xi is None:

@@ -17,13 +17,21 @@ tensors it depends on); the backward recomputes ``A x`` under
 for their cotangents.
 
 The stop test reads one boolean from the device per iteration (a host
-synchronisation each), so that iteration counts equal the JAX package's.
+synchronisation each, counted as ``host_sync.cg.stop``), so that iteration
+counts equal the JAX package's.
 
 ``iteration_log``: set it to a list and every ``cg_raw`` call appends
 (label, rows, columns, iterations) to it (None, the default, records
 nothing). ``label`` is the caller's ``log_label``, None unless given: the
-Schur operator's inner solves (``ops.matern.make_schur_matvec``) pass
-"schur_inner", forward and adjoint alike.
+SLQ gradient's solves pass "slq_grad" (the mBCG twin "mbcg_grad"), the
+average variance's one-hot solve "avg_var", the Schur operator's inner
+solves (``ops.matern.make_schur_matvec``) "schur_inner"; an adjoint solve
+carries its forward's label. While tracing (``utils.metrics``) the same
+exit point counts ``cg.solves.<label>``, ``cg.iterations.<label>`` and
+``cg.capped.<label>`` (solves stopped at ``max_iter`` with a column still
+above its tolerance, read off the device when the registry is read); one
+solve is the span ``imgp.solver.cg``, one iteration with its stop test
+``imgp.cg.step``, the operator's apply in it ``imgp.operator.apply``.
 
 Row-sharded operators (``parallel``): every sum over rows is
 ``parallel.mesh.row_sum``, which all-reduces under a mesh context and is
@@ -43,11 +51,20 @@ from typing import Callable, Optional
 import torch
 
 from ..parallel.mesh import active_context, row_sum, use_context
+from ..utils.metrics import count, count_on_device, span, spanned, tracing
 from .operator import as_operator
 
 iteration_log: Optional[list] = None
 
 
+def _unconverged(rs, stop2) -> bool:
+    """The stop test: some column's residual is still above its tolerance
+    (one host read)."""
+    count("host_sync.cg.stop")
+    return bool(torch.any(rs > stop2))
+
+
+@spanned("imgp.solver.cg")
 @torch.no_grad()
 def cg_raw(
     matvec: Callable,
@@ -88,26 +105,36 @@ def cg_raw(
     one = torch.ones_like(rs)
 
     iters = 0
-    while iters < max_iter and bool(torch.any(rs > stop2)):
-        ap = matvec(p)
-        pap = row_sum(p * ap, dim=0)
-        active = rs > stop2
-        alpha = torch.where(active, rz / torch.where(pap == 0, one, pap), zero)
-        x = x + alpha[None, :] * p
-        r = r - alpha[None, :] * ap
-        rs_new = row_sum(r * r, dim=0)
-        if precond is None:
-            z, rz_new = r, rs_new
-        else:
-            z = precond(r)
-            rz_new = row_sum(r * z, dim=0)
-        beta = torch.where(active, rz_new / torch.where(rz == 0, one, rz), zero)
-        p = z + beta[None, :] * p
-        rs = torch.where(active, rs_new, rs)
-        rz = torch.where(active, rz_new, rz)
-        iters += 1
+    go = max_iter > 0 and _unconverged(rs, stop2)
+    while go:
+        with span("imgp.cg.step"):
+            with span("imgp.operator.apply"):
+                ap = matvec(p)
+            pap = row_sum(p * ap, dim=0)
+            active = rs > stop2
+            alpha = torch.where(active, rz / torch.where(pap == 0, one, pap), zero)
+            x = x + alpha[None, :] * p
+            r = r - alpha[None, :] * ap
+            rs_new = row_sum(r * r, dim=0)
+            if precond is None:
+                z, rz_new = r, rs_new
+            else:
+                z = precond(r)
+                rz_new = row_sum(r * z, dim=0)
+            beta = torch.where(active, rz_new / torch.where(rz == 0, one, rz), zero)
+            p = z + beta[None, :] * p
+            rs = torch.where(active, rs_new, rs)
+            rz = torch.where(active, rz_new, rz)
+            iters += 1
+            go = iters < max_iter and _unconverged(rs, stop2)
     if iteration_log is not None:
         iteration_log.append((log_label, b.shape[0], b.shape[1], iters))
+    if tracing():
+        key = "unlabeled" if log_label is None else log_label
+        count(f"cg.solves.{key}")
+        count(f"cg.iterations.{key}", iters)
+        if iters == max_iter:
+            count_on_device(f"cg.capped.{key}", torch.any(rs > stop2))
     x_out = x[:, 0] if squeeze else x
     return (x_out, iters) if with_info else x_out
 
@@ -120,7 +147,7 @@ def consts_cotangents(fn, x, consts, needs, weight):
     out = [None] * len(consts)
     if not any(needs):
         return out
-    with torch.enable_grad():
+    with span("imgp.operator.vjp"), torch.enable_grad():
         cs = [c.detach().requires_grad_(need) for c, need in zip(consts, needs)]
         value = fn(x.detach(), *cs)
         wanted = [c for c in cs if c.requires_grad]

@@ -58,6 +58,7 @@ import threading
 
 import torch
 
+from ..utils.metrics import span
 from .block_sparse import BLOCK, BlockLayout, check_block_cols, permute_in, permute_out
 
 # Launches of the forward kernel / of K3 since the last reset (set to 0 to
@@ -150,10 +151,13 @@ def build_library() -> pathlib.Path:
 
 
 def _load():
+    """The kernel library, built and loaded at first use (the set-up span
+    ``imgp.ext.load``)."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
+            with span("imgp.ext.load", total=True):
+                lib = ctypes.CDLL(str(build_library()))
             fn = lib.block_ell_spmv
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

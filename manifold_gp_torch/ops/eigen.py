@@ -20,6 +20,12 @@ of the library routine the JAX package wraps
 orthonormalization, ``P`` from the Rayleigh-Ritz rotation), private to this
 module. Each iteration applies the operator twice: to ``[X, P, R]`` (3m
 columns) and to ``X`` (m columns), plus one apply to the start block.
+While tracing (``utils.metrics``) one basis is the span
+``imgp.solver.lobpcg``, one iteration ``imgp.lobpcg.step`` (in it
+``imgp.lobpcg.svqb``, ``imgp.lobpcg.rayleigh_ritz``, ``imgp.lobpcg.update``
+and each apply ``imgp.operator.apply``), and ``lobpcg.iterations`` counts
+them; each ``eigh`` and ``svd`` (which check their info on the host, the
+``svd`` twice) counts as ``host_sync.eigh.lobpcg`` / ``host_sync.svd.lobpcg``.
 
 ``lanczos_eigh`` is single-vector Lanczos with full reorthogonalization
 (two passes a step), for LOVE's root decomposition of a train covariance.
@@ -40,6 +46,7 @@ from typing import Callable, Optional
 import torch
 
 from ..parallel.mesh import active_mesh, replicate, row_gram, row_max, row_norm, row_sum
+from ..utils.metrics import count, span, spanned
 
 
 # Relative breakdown threshold: f32 residuals after double
@@ -115,6 +122,7 @@ def lanczos_eigh(matvec: Callable, v0: torch.Tensor, num_modes: int, num_steps: 
 def _eigh_descending(a):
     """Eigenpairs of the symmetrized ``a``, largest first (the library's
     ``_eigh_ascending``, which despite its name returns descending order)."""
+    count("host_sync.eigh.lobpcg")
     w, v = torch.linalg.eigh((a + a.T) / 2.0)
     return replicate(w.flip(0), v.flip(1))
 
@@ -125,6 +133,7 @@ def _rows(x) -> int:
     return x.shape[0] * (1 if mesh is None else mesh.world_size)
 
 
+@spanned("imgp.lobpcg.svqb")
 def _svqb(x):
     """Truncated orthonormal basis of ``x`` by SVQB: normalize the columns,
     eigendecompose the [k, k] Gram, scale; directions whose Gram eigenvalue
@@ -133,15 +142,19 @@ def _svqb(x):
     x = x / torch.where(norms == 0, 1.0, norms)
     inner = row_gram(x, x)
     w, v = _eigh_descending(inner)
-    tau = torch.finfo(x.dtype).eps * w[0]
-    padded = torch.maximum(w, tau)
-    sqrted = torch.where(tau > 0, padded, 1.0) ** -0.5  # tau == 0: x was all zeros
-    ortho = x @ (v * sqrted[None, :])
-    keep = ((w > tau) & (torch.diagonal(inner) > 0.0))[None, :]
-    ortho = ortho * keep.to(ortho.dtype)
-    norms = row_norm(ortho, dim=0, keepdim=True)
-    keep = keep & (norms > 0.0)
-    return ortho / torch.where(keep, norms, 1.0)
+    # a span that starts after the eigh, whose host events (cuSOLVER's
+    # launches and copies) would otherwise hide the svqb span from a trace
+    # reader that looks back a fixed number of events
+    with span("imgp.lobpcg.svqb_scale"):
+        tau = torch.finfo(x.dtype).eps * w[0]
+        padded = torch.maximum(w, tau)
+        sqrted = torch.where(tau > 0, padded, 1.0) ** -0.5  # tau == 0: x was all zeros
+        ortho = x @ (v * sqrted[None, :])
+        keep = ((w > tau) & (torch.diagonal(inner) > 0.0))[None, :]
+        ortho = ortho * keep.to(ortho.dtype)
+        norms = row_norm(ortho, dim=0, keepdim=True)
+        keep = keep & (norms > 0.0)
+        return ortho / torch.where(keep, norms, 1.0)
 
 
 def _orthonormalize(basis):
@@ -165,6 +178,7 @@ def _project_out(basis, u):
     return u * (norm_u >= 0.99).to(u.dtype)
 
 
+@spanned("imgp.lobpcg.rayleigh_ritz")
 def _rayleigh_ritz_orth(a, s):
     """Eigenpairs (descending) of ``a`` projected onto the orthonormal
     (zero columns allowed) ``s``."""
@@ -185,6 +199,7 @@ def _extend_basis(x, m):
         raise ValueError(f"LOBPCG on a mesh: rank 0 holds {n} rows, fewer than the "
                          f"{k + m} its start block's extension reads")
     upper, lower = x[:k], x[k:]
+    count("host_sync.svd.lobpcg", 2)  # svd reads its status on the host twice
     u, s, vt = torch.linalg.svd(upper)
     uvt, s, vt = replicate(u @ vt, s, vt)
     y = torch.cat([upper + uvt, lower], dim=0) if top else x
@@ -225,32 +240,37 @@ def _lobpcg_standard(a: Callable, x: torch.Tensor, max_iter: int, tol: Optional[
 
     i = 0
     while i < max_iter:
-        # invariants: X, P, R orthonormal; columns of P and R may be zero
-        r = _project_out(torch.cat((x, p), dim=1), r)
-        xpr = torch.cat((x, p, r), dim=1)
-        theta, q = _rayleigh_ritz_orth(a, xpr)
-        b = q[:, :k]
-        b = b / torch.linalg.norm(b, dim=0, keepdim=True)
-        x = xpr @ b
-        x = x / row_norm(x, dim=0, keepdim=True)
-        # P: orthogonalize vstack(0, Q[k:, :k]) against Q[:, :k] in the
-        # standard basis through the quadrant Q[:k, k:], then map with XPR
-        qp, _ = torch.linalg.qr(q[:k, k:].T)
-        p = xpr @ (q[:, k:] @ replicate(qp))
-        norm_p = row_norm(p, dim=0, keepdim=True)
-        p = p / torch.where(norm_p == 0, 1.0, norm_p)
-        ax = a(x)
-        theta = theta[None, :k]
-        r = ax - theta * x
-        i += 1
-        if tol > 0:
-            # self-consistency: |r| against the f32 error of computing it
-            reltol = (row_norm(ax, dim=0) + theta[0]) * n * 10
-            if int(torch.sum(row_norm(r, dim=0) < tol * reltol)) >= k:
-                break
+        with span("imgp.lobpcg.step"):
+            # invariants: X, P, R orthonormal; columns of P and R may be zero
+            r = _project_out(torch.cat((x, p), dim=1), r)
+            xpr = torch.cat((x, p, r), dim=1)
+            theta, q = _rayleigh_ritz_orth(a, xpr)
+            with span("imgp.lobpcg.update"):
+                b = q[:, :k]
+                b = b / torch.linalg.norm(b, dim=0, keepdim=True)
+                x = xpr @ b
+                x = x / row_norm(x, dim=0, keepdim=True)
+                # P: orthogonalize vstack(0, Q[k:, :k]) against Q[:, :k] in the
+                # standard basis through the quadrant Q[:k, k:], then map with XPR
+                qp, _ = torch.linalg.qr(q[:k, k:].T)
+                p = xpr @ (q[:, k:] @ replicate(qp))
+                norm_p = row_norm(p, dim=0, keepdim=True)
+                p = p / torch.where(norm_p == 0, 1.0, norm_p)
+                ax = a(x)
+                theta = theta[None, :k]
+                r = ax - theta * x
+            i += 1
+            if tol > 0:
+                # self-consistency: |r| against the f32 error of computing it
+                reltol = (row_norm(ax, dim=0) + theta[0]) * n * 10
+                count("host_sync.lobpcg.converged")
+                if int(torch.sum(row_norm(r, dim=0) < tol * reltol)) >= k:
+                    break
+    count("lobpcg.iterations", i)
     return theta[0, :], x, i
 
 
+@spanned("imgp.solver.lobpcg")
 def lobpcg_smallest(matvec: Callable, x0: torch.Tensor, upper_bound, max_iter: int = 200,
                     tol: Optional[float] = 0.0):
     """Smallest-m eigenpairs of a symmetric PSD operator by block LOBPCG on
@@ -273,7 +293,8 @@ def lobpcg_smallest(matvec: Callable, x0: torch.Tensor, upper_bound, max_iter: i
     c = torch.as_tensor(upper_bound, dtype=x0.dtype, device=x0.device).reshape(())
 
     def shifted(v):
-        return c * v - matvec(v)
+        with span("imgp.operator.apply"):
+            return c * v - matvec(v)
 
     theta, u, _ = _lobpcg_standard(shifted, x0, max_iter, tol)
     vals = c - theta

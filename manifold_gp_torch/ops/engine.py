@@ -26,6 +26,7 @@ import torch
 
 from ..config import InferenceConfig
 from ..parallel.mesh import constrain_probes
+from ..utils.metrics import count
 from .cg import cg_solve
 from .slq import rademacher_probes, slq_logdet
 
@@ -76,8 +77,10 @@ def solve(
     cfg: InferenceConfig,
     dense: Optional[torch.Tensor] = None,
     precond: Optional[Callable] = None,
+    log_label: Optional[str] = None,
 ):
-    """A^{-1} b, differentiable in both regimes (Cholesky AD / implicit CG)."""
+    """A^{-1} b, differentiable in both regimes (Cholesky AD / implicit CG);
+    ``log_label`` labels the CG solves (``ops.cg``)."""
     if dense is None and n <= cfg.max_cholesky:
         dense = densify(matvec, n, device=b.device)
     if dense is not None:
@@ -87,7 +90,7 @@ def solve(
         return x[:, 0] if squeeze else x
     return cg_solve(
         matvec, b, tol=cfg.cg_tolerance, max_iter=cfg.cg_max_iter,
-        precond=precond,
+        precond=precond, log_label=log_label,
     )
 
 
@@ -98,9 +101,10 @@ def inv_quad(
     cfg: InferenceConfig,
     dense: Optional[torch.Tensor] = None,
     precond: Optional[Callable] = None,
+    log_label: Optional[str] = None,
 ):
     """sum_i rhs_i' A^{-1} rhs_i."""
-    x = solve(matvec, rhs, n, cfg, dense=dense, precond=precond)
+    x = solve(matvec, rhs, n, cfg, dense=dense, precond=precond, log_label=log_label)
     return torch.sum(rhs * x)
 
 
@@ -132,7 +136,8 @@ def average_variance(
             idx = torch.tensor(np.asarray(idx))
         idx = idx.to(device=device, dtype=torch.int64)
         rhs = torch.zeros((n, num_rand_vec), dtype=torch.float32, device=device)
+        count("host_sync.avg_var.onehot")  # the scalar 1.0 is copied from the host
         rhs[idx, torch.arange(num_rand_vec, device=device)] = 1.0
         rhs = constrain_probes(rhs)
         denom = num_rand_vec
-    return inv_quad(matvec, rhs, n, cfg, precond=precond) / denom
+    return inv_quad(matvec, rhs, n, cfg, precond=precond, log_label="avg_var") / denom

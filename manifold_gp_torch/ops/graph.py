@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..utils.metrics import span
 from .knn import knn_search
 
 
@@ -137,26 +138,28 @@ def symmetrize_knn_edges(sqd, idx, num_nodes: int, x=None,
     ``sqd``/``idx`` are the raw [N, k] self-query search results (host
     arrays). With ``x`` the stored edge values are recomputed exactly as
     ||x_r - x_c||^2 by coordinate differencing; the search's values serve
-    only neighbour selection and the +inf missing-slot mask."""
-    n = int(num_nodes)
-    sqd = np.asarray(sqd)[:, 1:]
-    idx = np.asarray(idx)[:, 1:]
-    k_eff = sqd.shape[1]
-    rows = np.repeat(np.arange(n, dtype=np.int64), k_eff)
-    cols = idx.reshape(-1).astype(np.int64)
-    vals = sqd.reshape(-1)
-    finite = np.isfinite(vals)
-    if not finite.all():
-        rows, cols, vals = rows[finite], cols[finite], vals[finite]
-    flip = ~(cols > rows)
-    r2 = np.where(flip, cols, rows)
-    c2 = np.where(flip, rows, cols)
-    ur, uc, uv = coalesce_mean(r2, c2, vals, n)
-    if x is not None:
-        xh = np.asarray(x, np.float32)
-        d = xh[ur] - xh[uc]
-        uv = np.einsum("ij,ij->i", d, d).astype(np.float32)
-    return graph_from_edges(ur, uc, uv, n, device=device)
+    only neighbour selection and the +inf missing-slot mask. Its host
+    seconds are the set-up span ``imgp.graph.host_tail`` (``utils.metrics``)."""
+    with span("imgp.graph.host_tail", total=True):
+        n = int(num_nodes)
+        sqd = np.asarray(sqd)[:, 1:]
+        idx = np.asarray(idx)[:, 1:]
+        k_eff = sqd.shape[1]
+        rows = np.repeat(np.arange(n, dtype=np.int64), k_eff)
+        cols = idx.reshape(-1).astype(np.int64)
+        vals = sqd.reshape(-1)
+        finite = np.isfinite(vals)
+        if not finite.all():
+            rows, cols, vals = rows[finite], cols[finite], vals[finite]
+        flip = ~(cols > rows)
+        r2 = np.where(flip, cols, rows)
+        c2 = np.where(flip, rows, cols)
+        ur, uc, uv = coalesce_mean(r2, c2, vals, n)
+        if x is not None:
+            xh = np.asarray(x, np.float32)
+            d = xh[ur] - xh[uc]
+            uv = np.einsum("ij,ij->i", d, d).astype(np.float32)
+        return graph_from_edges(ur, uc, uv, n, device=device)
 
 
 def pin_self_match(sqd, idx):
@@ -188,7 +191,11 @@ def build_graph(x, nearest_neighbors: int, knn_backend: str = "device",
     by ``pin_self_match``); "ivf" trains an inverted-file
     quantizer on ``device`` and searches approximately. ``ivf_nlist`` /
     ``ivf_nprobe`` override the IVF sizing (default: ``default_nlist(N)``
-    lists, nprobe max(16, nlist / 4))."""
+    lists, nprobe max(16, nlist / 4)).
+
+    Set-up spans (``utils.metrics``): ``imgp.graph.search``, the search up to
+    its results on the host, and ``imgp.graph.host_tail``
+    (``symmetrize_knn_edges``)."""
     if knn_backend not in ("device", "host", "ivf"):
         raise ValueError(f"build_graph: unknown knn_backend {knn_backend!r}")
     if device is None:
@@ -196,20 +203,21 @@ def build_graph(x, nearest_neighbors: int, knn_backend: str = "device",
     if knn_backend == "host":
         from ..utils.native import knn_search_host
 
-        xh = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
-              else np.asarray(x)).astype(np.float32)
-        sqd, idx = pin_self_match(*knn_search_host(xh, xh, nearest_neighbors))
+        with span("imgp.graph.search", total=True):
+            xh = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                  else np.asarray(x)).astype(np.float32)
+            sqd, idx = pin_self_match(*knn_search_host(xh, xh, nearest_neighbors))
         return symmetrize_knn_edges(sqd, idx, xh.shape[0], x=xh, device=device)
-    xt = torch.as_tensor(x, dtype=torch.float32).to(device)
-    if knn_backend == "ivf":
-        from .knn import ivf_build, ivf_search
+    with span("imgp.graph.search", total=True):
+        xt = torch.as_tensor(x, dtype=torch.float32).to(device)
+        if knn_backend == "ivf":
+            from .knn import ivf_build, ivf_search
 
-        index = ivf_build(xt, nlist=ivf_nlist, kmeans_iters=ivf_kmeans_iters)
-        nprobe = ivf_nprobe if ivf_nprobe is not None else max(16, index.nlist // 4)
-        sqd, idx = ivf_search(index, xt, nearest_neighbors, nprobe=nprobe, self_query=True)
-    else:
-        sqd, idx = knn_search(xt, xt, nearest_neighbors, self_query=True)
-    return symmetrize_knn_edges(
-        sqd.cpu().numpy(), idx.cpu().numpy(), xt.shape[0],
-        x=xt.cpu().numpy(), device=device,
-    )
+            index = ivf_build(xt, nlist=ivf_nlist, kmeans_iters=ivf_kmeans_iters)
+            nprobe = ivf_nprobe if ivf_nprobe is not None else max(16, index.nlist // 4)
+            sqd, idx = ivf_search(index, xt, nearest_neighbors, nprobe=nprobe,
+                                  self_query=True)
+        else:
+            sqd, idx = knn_search(xt, xt, nearest_neighbors, self_query=True)
+        sqd, idx, xh = sqd.cpu().numpy(), idx.cpu().numpy(), xt.cpu().numpy()
+    return symmetrize_knn_edges(sqd, idx, xt.shape[0], x=xh, device=device)

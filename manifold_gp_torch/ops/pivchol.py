@@ -42,6 +42,7 @@ from typing import Callable
 import torch
 
 from ..parallel.mesh import active_mesh, row_gram, row_max, row_sum
+from ..utils.metrics import count, span
 from .slq import rademacher_probes
 
 
@@ -148,22 +149,24 @@ def pivoted_cholesky(matvec: Callable, diag0: torch.Tensor, rank: int):
     d = diag0.clone()
     keep_above = 1e-10 * row_max(diag0)
     for i in range(rank):
-        d_all = d if mesh is None else mesh.all_gather(d)
-        j = torch.argmax(d_all).reshape(1)
-        hot = rows == j
-        col = matvec(hot.to(diag0.dtype)[:, None])[:, 0]
-        if mesh is None:
-            lj = bigl.index_select(0, j)[0]
-        else:
-            lj = mesh.all_reduce(torch.where(hot[:, None], bigl, 0.0).sum(dim=0))
-        col = col - bigl @ lj
-        dj = d_all.index_select(0, j)
-        ell = col * torch.rsqrt(torch.clamp(dj, min=1e-12))
-        # degenerate pivot (operator numerically rank-deficient): stop adding
-        ell = torch.where(dj > keep_above, ell, torch.zeros_like(ell))
-        bigl[:, i] = ell
-        d = torch.clamp(d - ell * ell, min=0.0)
-        d = torch.where(hot, torch.zeros_like(d), d)
+        with span("imgp.pivchol.step"):
+            d_all = d if mesh is None else mesh.all_gather(d)
+            j = torch.argmax(d_all).reshape(1)
+            hot = rows == j
+            with span("imgp.operator.apply"):
+                col = matvec(hot.to(diag0.dtype)[:, None])[:, 0]
+            if mesh is None:
+                lj = bigl.index_select(0, j)[0]
+            else:
+                lj = mesh.all_reduce(torch.where(hot[:, None], bigl, 0.0).sum(dim=0))
+            col = col - bigl @ lj
+            dj = d_all.index_select(0, j)
+            ell = col * torch.rsqrt(torch.clamp(dj, min=1e-12))
+            # degenerate pivot (operator numerically rank-deficient): stop adding
+            ell = torch.where(dj > keep_above, ell, torch.zeros_like(ell))
+            bigl[:, i] = ell
+            d = torch.clamp(d - ell * ell, min=0.0)
+            d = torch.where(hot, torch.zeros_like(d), d)
     return bigl, d
 
 
@@ -185,6 +188,7 @@ def make_pivchol_precond(
     d = torch.maximum(d_res, floor)
     r = bigl.shape[1]
     c = torch.eye(r, dtype=bigl.dtype, device=bigl.device) + bigl.T @ (bigl / d[:, None])
+    count("host_sync.cholesky.precond")  # cholesky checks its info on the host
     return LowRankDiagPrecond(L=bigl, d=d, chol_c=torch.linalg.cholesky(c))
 
 

@@ -34,6 +34,7 @@ from typing import Callable, Optional
 import torch
 
 from ..parallel.mesh import active_context, row_sum, use_context
+from ..utils.metrics import count, span
 from .cg import cg_raw, consts_cotangents
 from .operator import as_operator
 
@@ -59,18 +60,21 @@ def lanczos_batched(matvec: Callable, q0: torch.Tensor, num_steps: int):
     alive = torch.ones((p,), dtype=torch.bool, device=q0.device)
     alphas, betas, valid = [], [], []
     for _ in range(num_steps):
-        w = matvec(q)
-        alpha = row_sum(q * w, dim=0)
-        w = w - alpha[None, :] * q - beta_prev[None, :] * q_prev
-        beta = torch.sqrt(row_sum(w * w, dim=0))
-        alive_next = alive & (beta > _BREAKDOWN_TOL)
-        safe_beta = torch.where(alive_next, beta, torch.ones_like(beta))
-        q_next = torch.where(alive_next[None, :], w / safe_beta[None, :], torch.zeros_like(w))
-        beta_out = torch.where(alive_next, beta, torch.zeros_like(beta))
-        alphas.append(alpha)
-        betas.append(beta_out)
-        valid.append(alive)
-        q_prev, q, beta_prev, alive = q, q_next, beta_out, alive_next
+        with span("imgp.lanczos.step"):
+            with span("imgp.operator.apply"):
+                w = matvec(q)
+            alpha = row_sum(q * w, dim=0)
+            w = w - alpha[None, :] * q - beta_prev[None, :] * q_prev
+            beta = torch.sqrt(row_sum(w * w, dim=0))
+            alive_next = alive & (beta > _BREAKDOWN_TOL)
+            safe_beta = torch.where(alive_next, beta, torch.ones_like(beta))
+            q_next = torch.where(alive_next[None, :], w / safe_beta[None, :],
+                                 torch.zeros_like(w))
+            beta_out = torch.where(alive_next, beta, torch.zeros_like(beta))
+            alphas.append(alpha)
+            betas.append(beta_out)
+            valid.append(alive)
+            q_prev, q, beta_prev, alive = q, q_next, beta_out, alive_next
     return torch.stack(alphas), torch.stack(betas), torch.stack(valid)
 
 
@@ -84,6 +88,7 @@ def _tridiag_e1_quadrature(alphas, betas, valid, f):
     a = torch.where(valid, alphas, torch.ones_like(alphas)).T  # [P, m]
     b = torch.where(valid[1:], betas[:-1], torch.zeros_like(betas[:-1])).T  # [P, m-1]
     t = torch.diag_embed(a) + torch.diag_embed(b, offset=1) + torch.diag_embed(b, offset=-1)
+    count("host_sync.eigh.slq")  # eigh checks its info on the host
     evals, evecs = torch.linalg.eigh(t)
     w = evecs[:, 0, :] ** 2
     return torch.sum(w * f(evals), dim=1)
@@ -119,7 +124,7 @@ class _SLQLogdet(torch.autograd.Function):
         p = probes.shape[1]
         with use_context(ctx.sharding):
             solves = cg_raw(lambda v: fn(v, *consts), probes, ctx.cg_tol, ctx.cg_max_iter,
-                            precond=ctx.precond)
+                            precond=ctx.precond, log_label="slq_grad")
             # d logdet = (1/p) sum_i (Q^{-1} z_i)' dQ z_i
             bars = consts_cotangents(fn, probes, consts, ctx.needs_input_grad[7:],
                                      solves * (g / p))
@@ -223,6 +228,7 @@ def _pcg_t_quadrature(alphas, betas, valid, f):
         torch.zeros_like(safe_a[:, :-1]),
     )
     t = torch.diag_embed(diag) + torch.diag_embed(off, offset=1) + torch.diag_embed(off, offset=-1)
+    count("host_sync.eigh.mbcg")  # eigh checks its info on the host
     evals, evecs = torch.linalg.eigh(t)
     w = evecs[:, 0, :] ** 2
     return torch.sum(w * f(evals), dim=1)
@@ -248,7 +254,7 @@ class _SLQMbcg(torch.autograd.Function):
         p = zr.shape[1]
         with use_context(ctx.sharding):
             solves = cg_raw(lambda v: fn(v, *consts), zr, ctx.cg_tol, ctx.cg_max_iter,
-                            precond=ctx.minv)
+                            precond=ctx.minv, log_label="mbcg_grad")
             # d logdet(A) = (1/p) sum_i (A^{-1} z_i)' dA z_i with E[z z'] = I;
             # the preconditioner (and its logdet, which only recenters the
             # estimator) gets no gradient.

@@ -14,12 +14,16 @@ solve boundaries, ``make_matvec_ad`` for the differentiable matvec:
 ``build_layout`` picks DIA whenever the reordered graph is banded enough, as
 the JAX package does; every function here dispatches on the layout type, so
 operator, kernel and model code is format-agnostic.
+
+Spans (``utils.metrics``): ``imgp.layout.build`` (set-up, always timed into
+the totals) and ``imgp.operator.assemble``.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
+from ..utils.metrics import span, spanned
 from . import block_sparse, cuda_spmv, dia
 from .block_sparse import BlockLayout
 from .dia import DiaLayout
@@ -40,13 +44,15 @@ def build_layout(
     """RCM-reorder the graph into DIA bands when it has at most
     ``dia_max_offsets`` distinct diagonals (and ``use_dia``), else into
     block-ELL panels; None when neither applies."""
-    if use_dia:
-        layout = dia.build_dia_layout(graph, max_offsets=dia_max_offsets)
-        if layout is not None:
-            return layout
-    return block_sparse.build_block_layout(graph, max_blocks_cap=max_blocks_cap)
+    with span("imgp.layout.build", total=True):
+        if use_dia:
+            layout = dia.build_dia_layout(graph, max_offsets=dia_max_offsets)
+            if layout is not None:
+                return layout
+        return block_sparse.build_block_layout(graph, max_blocks_cap=max_blocks_cap)
 
 
+@spanned("imgp.operator.assemble")
 def assemble(layout: Layout, diag, triu, dtype=None):
     if isinstance(layout, DiaLayout):
         # DIA products are plain f32 FMAs: the x3 split buys nothing, so

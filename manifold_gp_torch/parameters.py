@@ -14,6 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .utils.metrics import count
+
 
 def softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
@@ -74,6 +76,7 @@ class ConstrainedParam:
 
     def init_raw(self, value: Optional[float] = None, device="cpu"):
         v = self.init_value if value is None else value
+        count("host_sync.params.init")  # a host scalar copied to ``device``
         raw = self.constraint.inverse_transform(
             torch.as_tensor(v, dtype=torch.float32, device=device)
         )

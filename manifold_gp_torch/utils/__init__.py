@@ -15,7 +15,7 @@ from .datasets import (
     rotate_mnist,
 )
 from .evaluate import gaussian_nll, gaussian_nll_stochastic, test_model
-from .metrics import MetricsRecorder, phase_timer, profile_trace
+from .metrics import MetricsRecorder, count, profile_trace, span
 from .multistart import multi_start_train, random_restarts
 from .sampling import grid_uniform, sample_posterior
 from .train import ReduceLROnPlateau, manifold_informed_train, vanilla_train
@@ -27,6 +27,7 @@ __all__ = [
     "cached_graph",
     "clear_cache",
     "constrained_values",
+    "count",
     "gaussian_nll",
     "gaussian_nll_stochastic",
     "grid_uniform",
@@ -41,7 +42,6 @@ __all__ = [
     "params_to_numpy",
     "parse_msh",
     "parse_stl",
-    "phase_timer",
     "profile_trace",
     "random_restarts",
     "rmnist_dataset",
@@ -49,6 +49,7 @@ __all__ = [
     "sample_posterior",
     "save_params",
     "save_training_state",
+    "span",
     "test_model",
     "vanilla_train",
 ]

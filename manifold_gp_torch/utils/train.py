@@ -25,6 +25,15 @@ else from a ``torch.Generator`` seeded with ``seed``; the one-hot indices of
 an average-variance estimate from ``idx_fn(epoch)``, else from a second
 generator seeded with ``seed + 7919``. Both generators' states are
 checkpointed, so a resumed run replays the uninterrupted one.
+
+Spans (``utils.metrics``): ``imgp.train.run`` (a whole training),
+``imgp.train.epoch``, ``imgp.train.normalize`` (each average-variance
+estimate: its one-hot CG solve ends in a stop-test read, so its host
+seconds are the device's), ``imgp.train.precond_build``,
+``imgp.train.backward`` (this thread waits while the autograd engine runs
+the backward on its own thread for CUDA tensors) and ``imgp.train.step``
+(the optimizer step and the epoch's host reads of the loss and parameters,
+counted as ``host_sync.train.loss`` and ``host_sync.train.params``).
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from .metrics import count, span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,68 +171,77 @@ def _train_loop(
     aux = None
     aux_next = epoch  # rebuild immediately on entry (incl. after a resume)
     while epoch < total:
-        if aux_fn is not None and epoch >= aux_next:
-            aux = aux_fn(params)
-            # next rebuild at the next ABSOLUTE multiple of aux_period, so a
-            # resumed run re-joins the uninterrupted run's refresh epochs
-            period_abs = aux_period or total
-            aux_next = (epoch // period_abs + 1) * period_abs
-        for group in opt.param_groups:
-            group["lr"] = cur_lr
-        loss = loss_fn(params, epoch, aux)
-        grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
-        for k, g in zip(names, grads):
-            params[k].grad = torch.zeros_like(params[k]) if g is None else g
-        opt.step()
-        out = {"loss": float(loss.detach()), "lr": cur_lr}
-        with torch.no_grad():
-            for name, fn in tracked:
-                out[name] = float(fn(model, params).reshape(()))
-        if scheduler is not None:
-            cur_lr, sched_state = _sched_update(scheduler, out["loss"], cur_lr, sched_state)
-        if debug:
-            # NaN guard: fail fast with the epoch instead of training on
-            # poisoned parameters for the rest of the run
-            from .debug import check_finite
+        with span("imgp.train.epoch"):
+            if aux_fn is not None and epoch >= aux_next:
+                with span("imgp.train.precond_build"):
+                    aux = aux_fn(params)
+                # next rebuild at the next ABSOLUTE multiple of aux_period, so a
+                # resumed run re-joins the uninterrupted run's refresh epochs
+                period_abs = aux_period or total
+                aux_next = (epoch // period_abs + 1) * period_abs
+            for group in opt.param_groups:
+                group["lr"] = cur_lr
+            loss = loss_fn(params, epoch, aux)
+            with span("imgp.train.backward"):
+                grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                            allow_unused=True)
+                for k, g in zip(names, grads):
+                    params[k].grad = torch.zeros_like(params[k]) if g is None else g
+            with span("imgp.train.step"):
+                opt.step()
+                count("host_sync.train.loss")
+                out = {"loss": float(loss.detach()), "lr": cur_lr}
+                with torch.no_grad():
+                    for name, fn in tracked:
+                        count("host_sync.train.params")
+                        out[name] = float(fn(model, params).reshape(()))
+            if scheduler is not None:
+                cur_lr, sched_state = _sched_update(scheduler, out["loss"], cur_lr, sched_state)
+            if debug:
+                # NaN guard: fail fast with the epoch instead of training on
+                # poisoned parameters for the rest of the run
+                from .debug import check_finite
 
-            if not math.isfinite(out["loss"]):
-                raise FloatingPointError(f"non-finite training loss {out['loss']} at epoch {epoch}")
-            check_finite(params, name=f"params after epoch {epoch}")
-        history.append(out["loss"])
-        if metrics is not None:
-            metrics.record(epoch, **out)
-        if verbose:
-            msg = [f"Iteration: {epoch}, Loss: {out['loss']:0.3f}, Lr: {out['lr']:g}"]
-            msg += [f"{_LABELS[name]}: {out[name]:0.3f}" for name, _ in tracked]
-            print(",\t".join(msg))
-        epoch += 1
-        # Parity quirk: the early stop compares against a 1e6 sentinel that
-        # is never updated, so it effectively never fires and training runs
-        # all max_iter+1 epochs. Preserved as it is.
-        if abs(out["loss"] - 1e6) <= tolerance:
-            break
-        if on_epoch_end is not None and epoch < total and epoch % period == 0:
-            on_epoch_end(epoch, params)
-        # Checkpoint AFTER the epoch-boundary callback so the saved params
-        # (and callback generator) already include its effect.
-        if next_ckpt is not None and epoch >= next_ckpt:
-            from .checkpoint import save_training_state
-            from .metrics import is_host_zero
+                if not math.isfinite(out["loss"]):
+                    raise FloatingPointError(
+                        f"non-finite training loss {out['loss']} at epoch {epoch}")
+                check_finite(params, name=f"params after epoch {epoch}")
+            history.append(out["loss"])
+            if metrics is not None:
+                metrics.record(epoch, **out)
+            if verbose:
+                msg = [f"Iteration: {epoch}, Loss: {out['loss']:0.3f}, Lr: {out['lr']:g}"]
+                msg += [f"{_LABELS[name]}: {out[name]:0.3f}" for name, _ in tracked]
+                print(",\t".join(msg))
+            epoch += 1
+            # Parity quirk: the early stop compares against a 1e6 sentinel that
+            # is never updated, so it effectively never fires and training runs
+            # all max_iter+1 epochs. Preserved as it is.
+            if abs(out["loss"] - 1e6) <= tolerance:
+                break
+            if on_epoch_end is not None and epoch < total and epoch % period == 0:
+                on_epoch_end(epoch, params)
+            # Checkpoint AFTER the epoch-boundary callback so the saved params
+            # (and callback generator) already include its effect.
+            if next_ckpt is not None and epoch >= next_ckpt:
+                from .checkpoint import save_training_state
+                from .metrics import is_host_zero
 
-            # on a mesh every rank holds the same state: rank 0 writes it
-            if is_host_zero():
-                save_training_state(
-                    checkpoint_path, params, _adam_state(opt, params), epoch, cur_lr,
-                    sched_state,
-                    generator_state=None if generator is None else generator.get_state(),
-                    callback_generator_state=(
-                        None if callback_generator is None else callback_generator.get_state()
-                    ),
-                )
-            next_ckpt = (epoch // checkpoint_every + 1) * checkpoint_every
+                # on a mesh every rank holds the same state: rank 0 writes it
+                if is_host_zero():
+                    save_training_state(
+                        checkpoint_path, params, _adam_state(opt, params), epoch, cur_lr,
+                        sched_state,
+                        generator_state=None if generator is None else generator.get_state(),
+                        callback_generator_state=(
+                            None if callback_generator is None else callback_generator.get_state()
+                        ),
+                    )
+                next_ckpt = (epoch // checkpoint_every + 1) * checkpoint_every
     return params, history[-1] if history else float("nan"), history
 
 
+@spanned("imgp.train.run")
 def manifold_informed_train(
     model,
     params,
@@ -264,6 +284,7 @@ def manifold_informed_train(
         None if idx_fn is not None else torch.Generator(device=device).manual_seed(seed + 7919)
     )
 
+    @spanned("imgp.train.normalize")
     @torch.no_grad()
     def avg_var(p, epoch):
         idx = None if idx_fn is None else idx_fn(epoch)
@@ -328,6 +349,7 @@ def _as_probes(probes, device):
     return probes.to(device=device, dtype=torch.float32)
 
 
+@spanned("imgp.train.run")
 def vanilla_train(
     model,
     params,
