@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero before the result line is printed):
   1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
-     build of the three kernels from csrc/ with nvcc (timed);
+     build of the kernels from csrc/ with nvcc (timed);
   2. kernels vs plain at a small layout (10,240-point torus): the forward
      SpMV with f32, bf16 and x3 panels through both entry points
      (resident/stream) at B = 1, 7, 8, 9, 37, 48, 64, 100, 125, 128, 129,
@@ -89,8 +89,9 @@ Phases (any failure exits non-zero before the result line is printed):
      Jacobi, then both preconditioners at the initial and at the reached
      hyperparameters), every launch count reset just before and read just
      after; requires >= 192 K4 launches per gradient (32 Lanczos steps x 3
-     Neumann terms x nu = 2), >= 90 per pivoted-Cholesky build, no
-     block-ELL launch, finite losses and gradients, a loss that falls;
+     Neumann terms x nu = 2), >= 90 per pivoted-Cholesky build, K5
+     launches (the band cotangent), no block-ELL launch, finite losses and
+     gradients, a loss that falls;
   8a. serve the same curve on the host f64 basis at the hyperparameters
      phase 8 reached: finite outputs, RMSE vs truth below the label-noise
      floor;
@@ -103,6 +104,13 @@ Phases (any failure exits non-zero before the result line is printed):
      kernel on the same graph (use_dia=False) at B = 128; and both formats
      on the k = 16 and k = 24 curves (DIA forced with 128 offsets; K4 with
      its yardstick and bound): the DIA-vs-panel crossover on this card;
+     and at the served k = 8 curve's layout (phase 8's: D = 21) and the
+     k = 16 curve's (the curve262k cell's: D = 43) the band-cotangent
+     kernel K5 at B = 1, 100 and 128 against its plain
+     version and float64 (one launch a call, bit for bit from call to
+     call, its error against float64 no larger than the plain version's),
+     timed (kernel, device only, plain) beside its bound
+     (utils/roofline.py band_grad_bytes);
   9. the 16,384-point curve held to the JAX package's numbers
      (examples_torch/curve_pins.json): loss and gradients with shared
      probes, serve RMSE/NLL on the host f64 basis;
@@ -642,6 +650,63 @@ def compare_dia(layout, band, pv, label):
               f"(threshold {SMALL_TOL:.0e}; {plan.template}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"K4 disagrees with its plain version: {label} {entry} rel={rel}")
+    return rec
+
+
+def band_grad_check(layout, g, pv, band_dtype, label):
+    """K5 (``dia.bar_band`` on the card) at one width: against
+    ``bar_band_plain`` on the card and both against the same sum in float64
+    (max error over the largest |entry|), one launch a call, bit for bit
+    from call to call, zero past the D used lanes; with times: the kernel
+    (CUDA events; and device only, replayed in a CUDA graph), the plain
+    version, and the bound (``roofline.band_grad_bytes`` at the card's
+    memory rate, ``matvec_flops`` at its f32 peak). Returns a record."""
+    import torch
+
+    from manifold_gp_torch.ops import dia
+    from manifold_gp_torch.utils import roofline
+
+    b = int(pv.shape[1])
+    plan = dia.band_grad_plan(layout.offsets, layout.halfwidth, b)
+    before = dia.dia_band_grad_launch_count
+    got = dia.bar_band(layout, g, pv, band_dtype)
+    launches = dia.dia_band_grad_launch_count - before
+    same = torch.equal(got, dia.bar_band(layout, g, pv, band_dtype))
+    plain = dia.bar_band_plain(layout, g, pv, band_dtype)
+    exact = dia.bar_band_plain(layout, g.double(), pv.double(), torch.float64)
+    scale = float(exact.abs().max())
+    err = float((got.double() - exact).abs().max()) / scale
+    plain_err = float((plain.double() - exact).abs().max()) / scale
+    vs_plain = float((got.double() - plain.double()).abs().max()) / max(
+        float(plain.double().abs().max()), 1e-30)
+    clean = not got[:, layout.num_offsets:].any()
+    del exact, plain
+    f32 = band_dtype == torch.float32
+    ok = (launches == 1 and same and clean and bool(torch.isfinite(got).all())
+          and err <= plain_err + (2.0 ** -24 if f32 else 2.0 ** -9)
+          and vs_plain <= (SMALL_TOL if f32 else BF16_OUT_TOL))
+    del got
+    rec = {"case": label, "batch": b, "band": str(band_dtype).replace("torch.", ""),
+           "num_padded": layout.num_padded, "num_offsets": layout.num_offsets,
+           "template": plan.template, "rows_per_block": plan.rows_per_block,
+           "launches": launches, "max_rel_err": err, "plain_max_rel_err": plain_err,
+           "vs_plain_rel_err": vs_plain}
+    out_bytes = torch.empty((), dtype=band_dtype).element_size()
+    rec.update(bound(roofline.band_grad_bytes(layout, b, out_dtype_bytes=out_bytes)["total"],
+                     roofline.matvec_flops(layout, b), 4))
+    rec.update({
+        "ms": time_ms(lambda: dia.bar_band(layout, g, pv, band_dtype)),
+        "device_ms": graph_ms(lambda: dia.bar_band(layout, g, pv, band_dtype)),
+        "plain_ms": time_ms(lambda: dia.bar_band_plain(layout, g, pv, band_dtype), reps=3,
+                            runs=2)})
+    torch.cuda.empty_cache()
+    print(f"  {label:<34} B={b:<4} K5 {plan.template} (TR={plan.rows_per_block}): "
+          f"ms={rec['ms']:.4f} device_ms={rec['device_ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+          f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}); vs float64 {err:.3e} "
+          f"(plain {plain_err:.3e}), vs plain {vs_plain:.3e} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"K5 disagrees with its plain version or float64: {label} B={b} {rec} "
+             f"same={same} clean={clean}")
     return rec
 
 
@@ -2267,7 +2332,8 @@ def main():
         fail("torch.cuda.is_available() is False: this check needs a CUDA card")
     csrc = ROOT / "manifold_gp_torch" / "csrc"
     if not all((csrc / name).exists() for name in
-               ("block_ell_spmv.cu", "block_ell_bwd_blocks.cu", "dia_spmv.cu")):
+               ("block_ell_spmv.cu", "block_ell_bwd_blocks.cu", "dia_spmv.cu",
+                "dia_band_grad.cu")):
         fail(f"the manifold_gp_torch package is not next to {__file__}")
     sys.path.insert(0, str(ROOT))
 
@@ -2845,6 +2911,7 @@ def main():
     phase("phase 8: train the 262,144-point curve at k = 8 (DIA bands)")
     torch.cuda.empty_cache()
     cuda_spmv.launch_count = cuda_spmv.bwd_launch_count = dia.dia_launch_count = 0
+    dia.dia_band_grad_launch_count = 0
     cres, _, cmodel = train_campaign(n=262_144, epochs=3, device=dev, manifold="curve", k=8)
     curve_counts = launch_counts()
     cres["launches"] = curve_counts
@@ -2876,10 +2943,13 @@ def main():
     print(f"  training ({cres['precond_type']}): {cres['s_per_epoch']:.3f} s per epoch (median; "
           f"Jacobi {cres['jacobi_s_per_epoch']:.3f}), K4 launches "
           f"{cres['train_launches']['dia_launches']} over {cres['epochs']} epochs, "
-          f"{curve_counts['dia_launches']} in the phase; peak memory "
+          f"{curve_counts['dia_launches']} in the phase (K5 "
+          f"{curve_counts['band_grad_launches']}); peak memory "
           f"{cres['peak_mem_bytes'] / 1e9:.3f} GB")
     if curve_counts["spmv_launches"] or curve_counts["bwd_blocks_launches"]:
         fail(f"block-ELL kernels launched on the DIA path: {curve_counts}")
+    if not curve_counts["band_grad_launches"]:
+        fail("K5 (the band cotangent) never launched on the curve's training path")
     if cres["train_launches"]["dia_launches"] < K4_PER_GRADIENT * cres["epochs"]:
         fail("K4 launched fewer than 192 times per epoch")
     if not cres["finite"]:
@@ -2958,6 +3028,7 @@ def main():
                 "sparse.mm": host_us(lambda: torch.sparse.mm(csr, pv))}
 
     main_dia = []
+    band_grad = []  # K5 on the k = 8 curve, then the k = 16 curve (the curve262k cell's)
     for batch in (1, 100, 128):
         v = torch.randn((dlayout.num_nodes, batch), generator=gen, device=dev)
         pv = dia.permute_in(dlayout, v).contiguous()
@@ -2974,6 +3045,12 @@ def main():
             print("    host us per call (2,000 calls, synchronised before and after): " +
                   ", ".join(f"{k} {v:.1f}" for k, v in rec["host_us"].items()))
         main_dia.append(rec)
+        # K5 at the widths phase 8's backward passes launch it with on this layout
+        gb = dia.permute_in(dlayout, torch.randn((dlayout.num_nodes, batch), generator=gen,
+                                                 device=dev)).contiguous()
+        band_grad.append(band_grad_check(dlayout, gb, pv, torch.float32,
+                                         "served curve float32"))
+        del gb
     del csr
     report["main_dia"] = main_dia
 
@@ -3009,6 +3086,15 @@ def main():
         csr = band_csr(lk, bk)
         rec.update(dia_timing(lk, bk, pvk, csr))
         del csr
+        if k_wide == 16:  # curve262k's layout: K5 at the backward's widths and B = 100
+            for batch in (1, 100, 128):
+                gb = dia.permute_in(lk, torch.randn((lk.num_nodes, batch), generator=gen,
+                                                    device=dev)).contiguous()
+                pb = pvk if batch == 128 else dia.permute_in(lk, torch.randn(
+                    (lk.num_nodes, batch), generator=gen, device=dev)).contiguous()
+                band_grad.append(band_grad_check(lk, gb, pb, torch.float32,
+                                                 "k16 curve float32"))
+                del gb, pb
         pms, s_blocks, nrb = panel_ms(gk, ck, vk)
         crossover.append({"k": k_wide, "num_offsets": lk.num_offsets, "halfwidth": lk.halfwidth,
                           "batch": 128, "dia_ms": rec["ms"], "template": rec["template"],
@@ -3023,6 +3109,8 @@ def main():
               f"bound {row['bound_ms']:.4f}) vs block-ELL f32 panels {row['panel_ms']:.4f} ms "
               f"(S={row['max_blocks']}) at B={row['batch']}")
     report["dia_vs_panels"] = crossover
+    report["band_grad"] = band_grad
+    k5 = band_grad[-1]  # B = 128, the probes' width
 
     # -- phase 9: 16,384-point curve against the JAX pins -------------------
     phase("phase 9: the 16,384-point curve, held to the JAX pins")
@@ -3264,6 +3352,21 @@ def main():
             | {"max_rel_err": r["dia_matvec_call"]["max_rel_err"]}
             | {k: r[k] for k in ("host_us",) if k in r}
             for r in main_dia if r is not k4
+        ],
+    }, {
+        "name": "dia_band_grad",
+        "route": "cuda",
+        "source": "manifold_gp_torch/csrc/dia_band_grad.cu",
+        "replaces": "none: the band cotangent the JAX package leaves to XLA",
+        "launches": curve_counts["band_grad_launches"],
+        "launches_by_path": {"curve_train": curve_counts["band_grad_launches"]},
+        **{k: k5[k] for k in ("max_rel_err", "plain_max_rel_err", "ms", "device_ms",
+                              "plain_ms", "bound_ms", "bound_by", "band", "template")},
+        "shape": [k5["num_padded"], k5["num_offsets"], 128],
+        "other_shapes": [
+            {k: r[k] for k in ("num_offsets", "batch", "template", "ms", "device_ms", "plain_ms",
+                               "bound_ms", "bound_by", "max_rel_err", "plain_max_rel_err")}
+            for r in band_grad if r is not k5
         ],
     }]
     report["kernels"] = kernels

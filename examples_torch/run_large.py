@@ -354,12 +354,13 @@ def layout_record(camp: Campaign, n: int, k: int, num_modes: int) -> dict:
 
 def launch_counts() -> dict:
     """The launch counters of the port's kernels: forward block-ELL SpMV
-    (K1/K2), panel cotangent (K3), DIA band SpMV (K4)."""
+    (K1/K2), panel cotangent (K3), DIA band SpMV (K4), band cotangent (K5)."""
     from manifold_gp_torch.ops import cuda_spmv, dia
 
     return {"spmv_launches": cuda_spmv.launch_count,
             "bwd_blocks_launches": cuda_spmv.bwd_launch_count,
-            "dia_launches": dia.dia_launch_count}
+            "dia_launches": dia.dia_launch_count,
+            "band_grad_launches": dia.dia_band_grad_launch_count}
 
 
 def launches_since(before: dict) -> dict:

@@ -4,7 +4,8 @@ Pallas kernels K1/K2 (forward) and K3 (panel cotangent) of
 the build of the port's one kernel library.
 
 The kernels (``csrc/block_ell_spmv.cu``, ``csrc/block_ell_bwd_blocks.cu``,
-and ``csrc/dia_spmv.cu``, kernel K4, wrapped by ``ops.dia``) are CUDA C++
+and ``csrc/dia_spmv.cu`` and ``csrc/dia_band_grad.cu``, kernels K4 and K5,
+wrapped by ``ops.dia``) are CUDA C++
 compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a`` (one
 ``nvcc -c`` per source, started together, then one link) into one shared
 library with a plain C interface and loaded with ``ctypes``, at first use,
@@ -70,7 +71,7 @@ bwd_launch_count_by_batch: dict = {}
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = (_CSRC / "block_ell_spmv.cu", _CSRC / "block_ell_bwd_blocks.cu",
-            _CSRC / "dia_spmv.cu")
+            _CSRC / "dia_spmv.cu", _CSRC / "dia_band_grad.cu")
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build"
 _BATCH_TILES = (8, 16, 32, 64, 128)  # the forward kernel's batch-tile templates
 _BWD_CHUNK = 32  # K3: batch columns per chunk above its widest resident class
@@ -180,6 +181,14 @@ def _load():
                 ctypes.c_int, ctypes.c_void_p,
             ]
             dia.restype = ctypes.c_int
+            band = lib.dia_band_grad  # K5, wrapped by ops.dia
+            band.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p,
+            ]
+            band.restype = ctypes.c_int
             _lib = lib
     return _lib
 

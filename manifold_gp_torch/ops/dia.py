@@ -27,8 +27,13 @@ for CPU tensors; ``dia_launch_count`` counts the kernel's launches.
 blocking from the layout's shape and the batch. The TPU's
 pad-the-batch-to-128 step does not carry over: the kernel masks a ragged
 batch. ``make_matvec_ad`` is the differentiable matvec: forward K4,
-``bar_pv = K4(band, g)`` (the operator is symmetric), ``bar_band`` in plain
-PyTorch, as the JAX package computes it in XLA.
+``bar_pv = K4(band, g)`` (the operator is symmetric), and the band
+cotangent ``bar_band``: the CUDA kernel K5 (``csrc/dia_band_grad.cu``, one
+launch a call, template from ``band_grad_plan``) for CUDA tensors,
+``bar_band_plain`` (one ``torch.roll``, product and row sum per offset, as
+the JAX package computes it in XLA) for CPU tensors;
+``dia_band_grad_launch_count`` counts K5's launches, and the traced counter
+``dia.band_grad.<template>`` them while a profiler records.
 """
 
 from __future__ import annotations
@@ -42,17 +47,21 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.metrics import count
 from . import cuda_spmv
 from .graph import SparseGraph
 
 TILE = 512  # leading halo size; Npd is a multiple of it
 BAND_WIDTH = 128  # stored lanes per band row
 
-# Launches of K4 since the last reset (set to 0 to reset).
+# Launches of K4 / of K5 (the band cotangent) since the last reset (set to 0
+# to reset).
 dia_launch_count = 0
+dia_band_grad_launch_count = 0
 
 _BAND_MODES = {torch.float32: 0, torch.bfloat16: 1}
-_KINDS = {"row": 0, "general": 1, "window": 2}  # K4's templates, as the C entry numbers them
+# K4's and K5's templates, as their C entries number them
+_KINDS = {"row": 0, "general": 1, "window": 2}
 # K4's block shape, as csrc/dia_spmv.cu names it: threads per block
 # (kThreads), batch columns a block covers (kChunk; wider batches take
 # several) and rows a thread sums in registers (kRows; the window and
@@ -64,6 +73,15 @@ _ROWS = 8
 # an H100 SM (228 KB, 1 KB of it reserved per block). The curves' row runs
 # take less (49 KB at B = 128: four blocks, whose copies and FMAs overlap).
 _SMEM_BUDGET = 113 * 1024
+# K5's tile, as csrc/dia_band_grad.cu names it: batch columns staged at a
+# time (kChunk), rows (kRows) and band lanes (kShifts) of a tile; rows a
+# row-template block takes at once (kRowWarps, one warp a row); and the row
+# runs band_grad_plan aims at.
+_BG_CHUNK = 128
+_BG_ROWS = 4
+_BG_SHIFTS = 8
+_BG_ROW_WARPS = 8
+_BG_RUN = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,14 +338,135 @@ def dia_matvec_call(layout: DiaLayout, band: torch.Tensor, pv: torch.Tensor):
     raise ValueError(f"dia_spmv: unsupported device {pv.device}")
 
 
-def bar_band(layout: DiaLayout, g: torch.Tensor, pv: torch.Tensor, dtype) -> torch.Tensor:
+def bar_band_plain(layout: DiaLayout, g: torch.Tensor, pv: torch.Tensor,
+                   dtype) -> torch.Tensor:
     """Band cotangent bar_band[i, d] = sum_b g[i, b] * pv[i + off_d, b] in
-    ``dtype`` [Npd, BAND_WIDTH]; the padding lanes never contribute, so
-    their cotangent is zero."""
+    ``dtype`` [Npd, BAND_WIDTH], one roll per diagonal: the plain version
+    of K5. The padding lanes never contribute, so their cotangent is zero;
+    wrapped reads land on zero halo rows of pv."""
     out = torch.zeros((layout.num_padded, BAND_WIDTH), dtype=g.dtype, device=g.device)
     for j, off in enumerate(layout.offsets):
         out[:, j] = torch.sum(g * torch.roll(pv, -off, dims=0), dim=1)
     return out.to(dtype)
+
+
+class BandGradPlan(NamedTuple):
+    """K5's launch plan: the template and the rows a thread block takes."""
+
+    template: str  # "row" (B = 1), "window" (offsets filling [-W, W]) or "general"
+    rows_per_block: int
+
+
+def band_grad_smem(template: str, num_offsets: int, batch: int, rows_per_block: int) -> int:
+    """Dynamic shared memory of one K5 block, the sum launch_window and
+    launch_general in ``csrc/dia_band_grad.cu`` make: the operand window
+    [TR + 8 ceil(D / 8) - 1, float4 groups of min(B, 128) columns] f32
+    (window template) before g [TR, the same groups] f32. The row template
+    stages nothing."""
+    if template == "row":
+        return 0
+    pitch = 16 * (-(-min(batch, _BG_CHUNK) // 4))
+    g = rows_per_block * pitch
+    if template == "general":
+        return g
+    return (rows_per_block + _BG_SHIFTS * -(-num_offsets // _BG_SHIFTS) - 1) * pitch + g
+
+
+@functools.lru_cache(maxsize=256)
+def band_grad_plan(offsets: Tuple[int, ...], halfwidth: int, batch: int) -> BandGradPlan:
+    """K5's template and row run for a layout with these ``offsets`` and
+    ``halfwidth`` at ``batch`` columns. B = 1 takes the row template (one
+    warp a row). Otherwise a block takes 64 rows, or the most whole tiles
+    of 4 rows within the shared-memory budget: layouts whose offsets are
+    exactly -W .. W take the window template (a staged operand window), the
+    rest the general template (g staged, operand read from device
+    memory)."""
+    if batch <= 0:
+        raise ValueError(f"dia_band_grad: batch must be positive, got {batch}")
+    if batch == 1:
+        return BandGradPlan("row", _BG_ROW_WARPS)
+
+    def most_rows(template):
+        fixed = band_grad_smem(template, len(offsets), batch, 0)
+        per_row = band_grad_smem(template, len(offsets), batch, 1) - fixed
+        return min(_BG_RUN, max(0, _SMEM_BUDGET - fixed) // per_row // _BG_ROWS * _BG_ROWS)
+
+    if tuple(offsets) == tuple(range(-halfwidth, halfwidth + 1)):
+        rows = most_rows("window")
+        if rows >= _BG_ROWS:
+            return BandGradPlan("window", rows)
+    return BandGradPlan("general", most_rows("general"))
+
+
+@functools.lru_cache(maxsize=256)
+def _band_grad_args(offsets: Tuple[int, ...], halfwidth: int, batch: int):
+    """The C entry's layout and plan arguments: (offsets, d, w, kind,
+    rows_per_block) and the template's name."""
+    plan = band_grad_plan(offsets, halfwidth, batch)
+    return (((ctypes.c_int * len(offsets))(*offsets), len(offsets), halfwidth,
+             _KINDS[plan.template], plan.rows_per_block), plan.template)
+
+
+def _check_band_grad(layout: DiaLayout, g: torch.Tensor, pv: torch.Tensor, dtype):
+    npd = layout.num_padded
+    if dtype not in _BAND_MODES:
+        raise ValueError(f"dia_band_grad: band type must be float32/bfloat16, got {dtype}")
+    for name, t in (("cotangent", g), ("operand", pv)):
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[0] != npd:
+            raise ValueError(f"dia_band_grad: {name} must be float32 [{npd}, B], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if g.shape != pv.shape:
+        raise ValueError(f"dia_band_grad: cotangent {tuple(g.shape)} and operand "
+                         f"{tuple(pv.shape)} differ")
+    if pv.shape[1] <= 0:
+        raise ValueError("dia_band_grad: empty batch")
+    if g.device != pv.device:
+        raise ValueError(f"dia_band_grad: cotangent on {g.device}, operand on {pv.device}")
+
+
+def _launch_band_grad(layout: DiaLayout, g: torch.Tensor, pv: torch.Tensor, dtype, stream):
+    """One K5 launch on ``stream`` (a CUDA stream handle) into a new [Npd,
+    BAND_WIDTH] band of ``dtype`` (every lane written); counted. Arguments
+    checked."""
+    global dia_band_grad_launch_count
+    lib = cuda_spmv._lib or cuda_spmv._load()
+    npd, batch = pv.shape
+    (offsets, d, w, kind, block), template = _band_grad_args(layout.offsets, layout.halfwidth,
+                                                             batch)
+    out = torch.empty((npd, BAND_WIDTH), dtype=dtype, device=pv.device)
+    err = lib.dia_band_grad(g.data_ptr(), pv.data_ptr(), out.data_ptr(), offsets, d, w, npd,
+                            batch, BAND_WIDTH, _BAND_MODES[dtype], kind, block, stream)
+    if err != 0:
+        raise RuntimeError(f"dia_band_grad: launch failed with cudaError {err}")
+    dia_band_grad_launch_count += 1
+    count(f"dia.band_grad.{template}")
+    return out
+
+
+def bar_band_cuda(layout: DiaLayout, g: torch.Tensor, pv: torch.Tensor, dtype) -> torch.Tensor:
+    """Launch K5 on the current stream; raises on anything it does not take
+    or on a refused launch."""
+    _check_band_grad(layout, g, pv, dtype)
+    device = pv.device
+    if device.type != "cuda":
+        raise ValueError("bar_band_cuda: tensors must be on a CUDA device")
+    if not (g.is_contiguous() and pv.is_contiguous()):
+        raise ValueError("bar_band_cuda: cotangent and operand must be contiguous")
+    with (contextlib.nullcontext() if device.index == torch.cuda.current_device()
+          else torch.cuda.device(device)):
+        return _launch_band_grad(layout, g, pv, dtype, torch.cuda.current_stream().cuda_stream)
+
+
+def bar_band(layout: DiaLayout, g: torch.Tensor, pv: torch.Tensor, dtype) -> torch.Tensor:
+    """The band cotangent bar_band[i, d] = sum_b g[i, b] * pv[i + off_d, b]
+    in ``dtype`` [Npd, BAND_WIDTH], zero in the padding lanes: K5 for CUDA
+    tensors, ``bar_band_plain`` for CPU tensors."""
+    if pv.device.type == "cuda":
+        return bar_band_cuda(layout, g, pv, dtype)
+    if pv.device.type == "cpu":
+        _check_band_grad(layout, g, pv, dtype)
+        return bar_band_plain(layout, g, pv, dtype)
+    raise ValueError(f"dia_band_grad: unsupported device {pv.device}")
 
 
 class _DiaMatvec(torch.autograd.Function):

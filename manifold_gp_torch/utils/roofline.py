@@ -8,7 +8,9 @@ move over the card's memory rate, and its operations over the card's peak
 rate for their type (f32 panels and bands: IEEE f32 FMA, TF32 off; bf16
 panels, and the stacked bf16 hi/lo "x3" panels: the bf16 tensor cores).
 
-Byte model of one apply (``matvec_bytes``), each part read or written once:
+Byte model of one apply (``matvec_bytes``), each part read or written once
+(and of the cotangents K3 and K5 write, ``bwd_blocks_bytes`` and
+``band_grad_bytes``):
   * block-ELL: the panels (``buf_dtype_bytes`` per entry), the operand and
     the output; the int32 block-id table beside them (``index``, not in
     ``total``, as in JAX's model; a kernel's bound adds it);
@@ -150,6 +152,21 @@ def bwd_blocks_bytes(layout, batch: int, *, out_dtype_bytes: int = 4,
     index = nrb * s * 4
     return {"output": output, "cotangent": cotangent, "operand": operand, "index": index,
             "total": output + cotangent + operand + index}
+
+
+def band_grad_bytes(layout, batch: int, *, out_dtype_bytes: int = 4,
+                    operand_dtype_bytes: int = 4) -> dict:
+    """HBM bytes of one DIA band cotangent ``bar_band[i, d] = sum_b g[i, b]
+    * pv[i + off_d, b]`` (kernel K5): the output cotangent and the operand
+    read once, the ``BAND_WIDTH``-lane band written once (every lane, the
+    padding's zeros too). Its FLOPs are ``matvec_flops``."""
+    spec = normalize_spec(layout)
+    npd = spec["num_padded"]
+    cotangent = npd * batch * operand_dtype_bytes
+    operand = npd * batch * operand_dtype_bytes
+    output = npd * BAND_WIDTH * out_dtype_bytes
+    return {"cotangent": cotangent, "operand": operand, "output": output,
+            "total": cotangent + operand + output}
 
 
 def cg_iter_bytes(layout, batch: int, nu: int, *, operand_dtype_bytes: int = 4,

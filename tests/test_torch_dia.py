@@ -335,6 +335,166 @@ def test_matvec_permuted_matches_csr_on_gapped_layouts(name, batch):
         np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL * np.abs(want).max())
 
 
+# -- K5, the band cotangent: plan, sizing, dispatch and counting -------------
+
+CURVE_OFFSETS = tuple(range(-21, 22))  # the k = 16 curves' layout: D = 43 = 2W + 1
+
+
+def _band_grad_case(offsets, n, batch, seed):
+    """A layout in band order with these offsets, an operand with zero halo
+    rows and an output cotangent with zero halo rows (the solver path's)."""
+    lay = tdia.layout_from_offsets(offsets, n, device="cpu")
+    rng = np.random.default_rng(seed)
+    g = np.zeros((lay.num_padded, batch), np.float32)
+    pv = np.zeros((lay.num_padded, batch), np.float32)
+    g[tdia.TILE:tdia.TILE + n] = rng.standard_normal((n, batch))
+    pv[tdia.TILE:tdia.TILE + n] = rng.standard_normal((n, batch))
+    return lay, torch.from_numpy(g), torch.from_numpy(pv)
+
+
+@pytest.mark.parametrize("band_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offsets", [CURVE_OFFSETS, tdia.GAPPED_OFFSETS], ids=["curve", "gapped"])
+def test_bar_band_on_cpu_takes_the_plain_path(offsets, band_dtype):
+    """CPU tensors: ``bar_band`` is ``bar_band_plain`` (no launch), which
+    matches a float64 sum over the operand's shifted rows."""
+    lay, g, pv = _band_grad_case(offsets, 1100, 5, seed=len(offsets))
+    before = tdia.dia_band_grad_launch_count
+    got = tdia.bar_band(lay, g, pv, band_dtype)
+    assert tdia.dia_band_grad_launch_count == before
+    assert got.dtype == band_dtype and tuple(got.shape) == (lay.num_padded, tdia.BAND_WIDTH)
+    assert torch.equal(got, tdia.bar_band_plain(lay, g, pv, band_dtype))
+    g64, pv64 = g.double().numpy(), pv.double().numpy()
+    want = np.zeros((lay.num_padded, tdia.BAND_WIDTH))
+    rows = np.arange(lay.num_padded)
+    for j, off in enumerate(lay.offsets):
+        src = rows + off
+        ok = (src >= 0) & (src < lay.num_padded)
+        want[ok, j] = np.sum(g64[ok] * pv64[src[ok]], axis=1)
+    tol = TOL if band_dtype == torch.float32 else 2.0 ** -8
+    np.testing.assert_allclose(got.double().numpy(), want, rtol=0, atol=tol * np.abs(want).max())
+    assert not got[:, lay.num_offsets:].any()
+
+
+def test_bar_band_rejects_what_the_kernel_does_not_take():
+    lay, g, pv = _band_grad_case(tdia.GAPPED_OFFSETS, 1100, 3, seed=0)
+    with pytest.raises(ValueError, match="band type"):
+        tdia.bar_band(lay, g, pv, torch.float64)
+    with pytest.raises(ValueError, match="operand"):
+        tdia.bar_band(lay, g, pv.double(), torch.float32)
+    with pytest.raises(ValueError, match="differ"):
+        tdia.bar_band(lay, g[:, :2], pv, torch.float32)
+    with pytest.raises(ValueError, match="empty"):
+        tdia.bar_band(lay, g[:, :0], pv[:, :0], torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tdia.bar_band_cuda(lay, g, pv, torch.float32)
+
+
+@pytest.mark.parametrize("template,d,batch,rows,want", [
+    ("window", 43, 128, 64, (64 + 48 - 1) * 512 + 64 * 512),  # the k = 16 curve at B = 128
+    ("window", 21, 100, 64, (64 + 24 - 1) * 400 + 64 * 400),  # 25 float4 groups
+    ("window", 43, 200, 64, (64 + 48 - 1) * 512 + 64 * 512),  # a 128-column chunk
+    ("window", 43, 3, 64, (64 + 48 - 1) * 16 + 64 * 16),  # one ragged group
+    ("general", 9, 128, 64, 64 * 512),  # g only
+    ("row", 43, 1, 8, 0),
+])
+def test_band_grad_smem(template, d, batch, rows, want):
+    """K5's shared memory per block: the operand window [TR + 8 ceil(D/8)
+    - 1, 4 x groups] f32 before g [TR, 4 x groups] f32."""
+    assert tdia.band_grad_smem(template, d, batch, rows) == want
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 5, 37, 100, 128, 129, 200])
+def test_band_grad_plan(batch):
+    """B = 1 takes the row template (one warp a row); wider batches on a
+    filled layout the window template with 64-row runs within the budget,
+    above 128 columns the plan of 128; gapped layouts the general one."""
+    layouts = ((CURVE_OFFSETS, 21, "window"), (K8_OFFSETS, 10, "window"),
+               (tdia.GAPPED_OFFSETS, 512, "general"), (tdia.spread_offsets(), 512, "general"),
+               (tuple(o for o in range(-10, 11) if o != 3), 10, "general"))
+    for offsets, w, template in layouts:
+        plan = tdia.band_grad_plan(offsets, w, batch)
+        if batch == 1:
+            assert plan == tdia.BandGradPlan("row", 8)
+            continue
+        assert plan == tdia.BandGradPlan(template, 64)
+        smem = tdia.band_grad_smem(plan.template, len(offsets), batch, plan.rows_per_block)
+        assert smem <= tdia._SMEM_BUDGET
+    if batch > 128:
+        assert tdia.band_grad_plan(CURVE_OFFSETS, 21, batch) == tdia.band_grad_plan(
+            CURVE_OFFSETS, 21, 128)
+    with pytest.raises(ValueError, match="batch"):
+        tdia.band_grad_plan(CURVE_OFFSETS, 21, 0)
+
+
+def test_band_grad_plan_caps_the_row_run_by_the_budget():
+    """The widest filled layout (W = 63, D = 127) at B = 128: the window
+    [TR + 127, 128] and g [TR, 128] f32 leave room for 48 rows."""
+    offsets = tuple(range(-63, 64))
+    plan = tdia.band_grad_plan(offsets, 63, 128)
+    assert plan == tdia.BandGradPlan("window", 48)
+    assert tdia.band_grad_smem("window", 127, 128, 48) <= tdia._SMEM_BUDGET
+    assert tdia.band_grad_smem("window", 127, 128, 52) > tdia._SMEM_BUDGET
+
+
+def test_band_grad_bytes_at_the_curve262k_layout():
+    """K5's byte bound: g and pv read once, the 128-lane band written once
+    (404 MB at Npd = 263,168, B = 128, f32; 137 MB at B = 1)."""
+    from manifold_gp_torch.utils import roofline
+
+    spec = {"format": "dia", "num_padded": 263_168, "num_offsets": 43, "halfwidth": 21}
+    assert roofline.band_grad_bytes(spec, 128)["total"] == 263_168 * (2 * 128 + 128) * 4
+    assert roofline.band_grad_bytes(spec, 1)["total"] == 263_168 * (2 + 128) * 4
+    assert roofline.band_grad_bytes(spec, 1, out_dtype_bytes=2)["output"] == 263_168 * 256
+    assert roofline.matvec_flops(spec, 128) == 2 * 263_168 * 43 * 128
+
+
+class _FakeLibrary:
+    """The kernel library's K5 entry, recording its arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def dia_band_grad(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_band_grad_launch_is_counted_while_tracing(monkeypatch):
+    """Every K5 launch adds 1 to ``dia_band_grad_launch_count`` and, while a
+    profiler records, to the traced counter ``dia.band_grad.<template>``;
+    the C entry gets the layout, the band's type and the plan. Recording is
+    the profiler's flag (pinned in test_torch_tracing.py), set here by hand:
+    starting a profiler costs seconds."""
+    from torch.autograd import profiler as autograd_profiler
+
+    from manifold_gp_torch.ops import cuda_spmv
+    from manifold_gp_torch.utils import metrics
+
+    lib = _FakeLibrary()
+    monkeypatch.setattr(cuda_spmv, "_lib", lib)
+    lay, g, pv = _band_grad_case(CURVE_OFFSETS, 1100, 128, seed=1)
+    _, g1, pv1 = _band_grad_case(CURVE_OFFSETS, 1100, 1, seed=1)
+    metrics.reset()
+    try:
+        before = tdia.dia_band_grad_launch_count
+        tdia._launch_band_grad(lay, g, pv, torch.float32, 0)
+        assert metrics.traced()["counters"] == {}
+        with monkeypatch.context() as recording:
+            recording.setattr(autograd_profiler, "_is_profiler_enabled", True)
+            for _ in range(3):
+                tdia._launch_band_grad(lay, g, pv, torch.bfloat16, 0)
+            tdia._launch_band_grad(lay, g1, pv1, torch.float32, 0)
+        assert metrics.traced()["counters"] == {"dia.band_grad.window": 3,
+                                                "dia.band_grad.row": 1}
+        assert tdia.dia_band_grad_launch_count == before + 5
+    finally:
+        metrics.reset()
+    (_, _, _, offs, d, w, npd, batch, stride, mode, kind, rows, stream) = lib.calls[1]
+    assert list(offs) == list(CURVE_OFFSETS) and (d, w, npd, batch) == (43, 21, lay.num_padded, 128)
+    assert (stride, mode, kind, rows, stream) == (tdia.BAND_WIDTH, 1, tdia._KINDS["window"], 64, 0)
+    assert lib.calls[-1][7] == 1 and lib.calls[-1][10:12] == (tdia._KINDS["row"], 8)
+
+
 # -- the training loss on a DIA layout --------------------------------------
 
 RAW = ("raw_graphbandwidth", "raw_lengthscale", "raw_noise", "raw_outputscale")
