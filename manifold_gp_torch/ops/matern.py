@@ -18,7 +18,9 @@
     Q(v - s^2 Q(v - s^2 Q v)).
   * Schur complement (semisupervised): the labeled block's effective
     precision Q_ll - Q_lu Q_uu^{-1} Q_ul, each apply an inner CG on the
-    unlabeled block.
+    unlabeled block: the span ``imgp.schur.apply`` and the counter
+    ``schur.applies.<columns>`` (``utils.metrics``) while tracing; the inner
+    solves count as ``cg.*.schur_inner`` (``ops.cg``).
 
 Each factory here returns an ``ops.operator.Operator``: the matvec [n, B] ->
 [n, B] together with the tensors it depends on, which the solvers of
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import row_max
+from ..utils.metrics import count, span
 from .block_sparse import BlockLayout
 from .graph import SparseGraph
 from .laplacian import LaplacianCoeffs, incident_sum, laplacian_matvec
@@ -340,10 +343,12 @@ def make_schur_matvec(
     def fn(v, *consts):
         squeeze = v.dim() == 1
         vv = v[:, None] if squeeze else v
-        t = base.fn(embed(li, vv), *consts)
-        sol = cg_solve(Operator(inner_fn, consts), t.index_select(0, ui), tol=cg_tol,
-                       max_iter=cg_max_iter, precond=inner_precond, log_label="schur_inner")
-        out = t.index_select(0, li) - base.fn(embed(ui, sol), *consts).index_select(0, li)
+        count(f"schur.applies.{vv.shape[1]}")
+        with span("imgp.schur.apply"):
+            t = base.fn(embed(li, vv), *consts)
+            sol = cg_solve(Operator(inner_fn, consts), t.index_select(0, ui), tol=cg_tol,
+                           max_iter=cg_max_iter, precond=inner_precond, log_label="schur_inner")
+            out = t.index_select(0, li) - base.fn(embed(ui, sol), *consts).index_select(0, li)
         return out[:, 0] if squeeze else out
 
     return Operator(fn, base.consts)
@@ -388,10 +393,12 @@ def make_schur_matvec_masked(
     def fn(v, *consts):
         squeeze = v.dim() == 1
         vv = v[:, None] if squeeze else v
-        t = base.fn(ml * vv, *consts)
-        sol = cg_solve(Operator(inner_fn, consts, mesh=base.mesh), mu * t, tol=cg_tol,
-                       max_iter=cg_max_iter, precond=inner_precond, log_label="schur_inner")
-        out = ml * (t - base.fn(mu * sol, *consts))
+        count(f"schur.applies.{vv.shape[1]}")
+        with span("imgp.schur.apply"):
+            t = base.fn(ml * vv, *consts)
+            sol = cg_solve(Operator(inner_fn, consts, mesh=base.mesh), mu * t, tol=cg_tol,
+                           max_iter=cg_max_iter, precond=inner_precond, log_label="schur_inner")
+            out = ml * (t - base.fn(mu * sol, *consts))
         return out[:, 0] if squeeze else out
 
     return Operator(fn, base.consts, mesh=base.mesh)
