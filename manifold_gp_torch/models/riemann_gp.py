@@ -11,9 +11,13 @@ indices) is passed in or drawn from an explicit ``torch.Generator``.
 
 Semisupervised (``labeled``, a boolean mask over the kernel's nodes): the
 graph covers every node, the labels only the masked ones. The loss runs on
-the labeled block's Schur complement of the unpermuted precision, one inner
-CG on the unlabeled block per apply (``ops.matern.make_schur_matvec``), and
-the posterior reaches the labeled points through Nyström features.
+the labeled block's Schur complement of the precision, one inner CG on the
+unlabeled block per apply, and the posterior reaches the labeled points
+through Nyström features. With a sparse layout the Schur complement runs in
+padded-RCM space on full-length masked vectors
+(``ops.matern.make_schur_matvec_masked``), indexed only where the stack
+meets the compact labeled vectors; without one it indexes node rows
+(``ops.matern.make_schur_matvec``).
 
 Prediction uses the exact feature-space (Woodbury) posterior: with
 K = s Z Z' + sigma^2 I and C = (sigma^2/s) I_m + Z'Z,
@@ -59,9 +63,11 @@ from ..ops.matern import (
     make_noisy_matvec,
     make_scaled_matvec,
     make_schur_matvec,
+    make_schur_matvec_masked,
     noisy_scaled_diag,
 )
 from ..ops.operator import Operator
+from ..ops.sparse_formats import permute_in, permute_out
 from ..parallel.mesh import (
     enter_params,
     in_probe_role,
@@ -104,6 +110,16 @@ class RiemannGP:
         if self.labeled is not None:
             self._labeled_idx, self._unlabeled_idx = labeled_split(self.labeled)
             self._labeled_rows = torch.as_tensor(self._labeled_idx, device=self.device)
+            layout = kernel.block_layout
+            if layout is not None:
+                # The Schur complement in padded-RCM space: the labeled rows'
+                # permuted positions (the boundary) and the node masks
+                # carried there (padding, halo and pad rows in neither).
+                self._labeled_prows = layout.unperm[self._labeled_rows]
+                mask_l = torch.as_tensor(self.labeled, dtype=torch.float32,
+                                         device=self.device)
+                self._pmask_l = permute_in(layout, mask_l)
+                self._pmask_u = permute_in(layout, 1.0 - mask_l)
         self._noise_decl = ConstrainedParam(
             "noise",
             noise_constraint if noise_constraint is not None else GreaterThan(1e-8),
@@ -182,41 +198,57 @@ class RiemannGP:
         """Compose Schur (semisupervised) -> Scale -> Noise over the
         kernel's precision.
 
-        Supervised, on the block-sparse path, the whole composition runs in
-        padded-RCM space: the scalar Scale/Noise wrappers commute with the
-        permutation, so one permute_in/out pair at the boundary replaces
+        On the block-sparse path (block-ELL or DIA) the whole composition
+        runs in padded-RCM space: the scalar Scale/Noise wrappers commute
+        with the permutation, so the boundary around the stack replaces
         per-Laplacian-matvec row gathers (a noisy nu=2 apply does 6 of
-        them). The Schur complement indexes node rows, so a labeled model
-        keeps the base operator's own permute in/out per apply. On a mesh
+        them). Supervised, the boundary is one permute_in/out pair. A
+        labeled model runs the Schur complement there too, in its masked
+        full-length form (``make_schur_matvec_masked`` over the node masks
+        carried into permuted space), so its inner solves gather nothing;
+        the boundary embeds the compact labeled vector at the labeled
+        rows' permuted positions and selects them back (counters
+        ``schur.gathers.embed`` / ``.select``). Without a layout the Schur
+        complement is the index form ``make_schur_matvec``. On a mesh
         kernel: ``_precision_matvec_sharded``."""
         if self.mesh is not None:
             return self._precision_matvec_sharded(params, noise=noise, coeffs=coeffs)
-        permuted = self.labeled is None and self.kernel.block_layout is not None
+        layout = self.kernel.block_layout
+        permuted = layout is not None
         mv = self.kernel.precision_matvec(params, coeffs=coeffs, permuted_io=permuted)
         if self.labeled is not None:
-            mv = make_schur_matvec(
-                mv, self._labeled_idx, self._unlabeled_idx, self.kernel.graph.num_nodes,
-                cg_tol=self.cfg.cg_tolerance, cg_max_iter=self.cfg.cg_max_iter,
-                precond_diag=(
-                    self.kernel.precision_diag(params, coeffs=coeffs)
-                    if self.cfg.cg_precondition
-                    else None
-                ),
-            )
+            pd = (self.kernel.precision_diag(params, coeffs=coeffs)
+                  if self.cfg.cg_precondition else None)
+            solve = dict(cg_tol=self.cfg.cg_tolerance, cg_max_iter=self.cfg.cg_max_iter)
+            if permuted:
+                mv = make_schur_matvec_masked(
+                    mv, self._pmask_l, self._pmask_u, **solve,
+                    precond_diag=None if pd is None else permute_in(layout, pd))
+            else:
+                mv = make_schur_matvec(mv, self._labeled_idx, self._unlabeled_idx,
+                                       self.kernel.graph.num_nodes, **solve, precond_diag=pd)
         if self.use_outputscale:
             mv = make_scaled_matvec(mv, self.outputscale(params))
         if noise:
             mv = make_noisy_matvec(mv, self.noise(params))
         if permuted:
-            from ..ops.sparse_formats import permute_in, permute_out
-
-            layout = self.kernel.block_layout
             inner = mv.fn
+            if self.labeled is None:
+                def boundary(vv, *consts):
+                    return permute_out(layout, inner(permute_in(layout, vv), *consts))
+            else:
+                rows = self._labeled_prows
+
+                def boundary(vv, *consts):
+                    count("schur.gathers.embed")
+                    pv = vv.new_zeros((layout.num_padded, vv.shape[1])).index_copy(0, rows, vv)
+                    out = inner(pv, *consts)
+                    count("schur.gathers.select")
+                    return out.index_select(0, rows)
 
             def fn(v, *consts):
                 squeeze = v.dim() == 1
-                vv = v[:, None] if squeeze else v
-                out = permute_out(layout, inner(permute_in(layout, vv), *consts))
+                out = boundary(v[:, None] if squeeze else v, *consts)
                 return out[:, 0] if squeeze else out
 
             mv = Operator(fn, mv.consts)
@@ -238,8 +270,6 @@ class RiemannGP:
         (semisupervised) -> Scale -> Noise, on this rank's rows of the
         padded space; equal to ``precision_matvec`` of one device embedded
         at the support rows."""
-        from ..ops.matern import make_schur_matvec_masked
-
         mv = self.kernel.precision_matvec(params, coeffs=coeffs)
         if self.labeled is not None:
             pd = (self._padded_precision_diag(params, coeffs=coeffs)

@@ -20,7 +20,15 @@
     precision Q_ll - Q_lu Q_uu^{-1} Q_ul, each apply an inner CG on the
     unlabeled block: the span ``imgp.schur.apply`` and the counter
     ``schur.applies.<columns>`` (``utils.metrics``) while tracing; the inner
-    solves count as ``cg.*.schur_inner`` (``ops.cg``).
+    solves count as ``cg.*.schur_inner`` (``ops.cg``). Two forms:
+    ``make_schur_matvec`` indexes node rows (an embed and a select around
+    every base apply, inner ones included), and runs where the kernel has
+    no sparse layout (the dense operator, the ELL gather loop);
+    ``make_schur_matvec_masked`` works on full-length vectors with 0/1 row
+    masks, and runs in padded-RCM space on a single device with a layout
+    (``RiemannGP.precision_matvec``, whose boundary does the only index
+    work) and on each rank's rows of a mesh kernel. Each index gather or
+    scatter the Schur code issues counts ``schur.gathers.<embed|select>``.
 
 Each factory here returns an ``ops.operator.Operator``: the matvec [n, B] ->
 [n, B] together with the tensors it depends on, which the solvers of
@@ -29,8 +37,8 @@ operator (``Operator.mesh``) the wrappers keep the mesh, and the scalars
 they add enter the sharded computation through ``Operator.entered``.
 
 ``make_schur_matvec_masked`` is the Schur complement in full-length masked
-form, made of elementwise masks only: the form the row-sharded (multi-GPU)
-model uses.
+form, made of elementwise masks only: the form a model with a sparse layout
+runs, in permuted space on one device and row-sharded on a mesh.
 """
 
 from __future__ import annotations
@@ -335,10 +343,15 @@ def make_schur_matvec(
         inner_precond = make_jacobi_precond(precond_diag.detach().index_select(0, ui))
 
     def embed(idx, u):
+        count("schur.gathers.embed")
         return u.new_zeros((n, u.shape[1])).index_copy(0, idx, u)
 
+    def select(idx, u):
+        count("schur.gathers.select")
+        return u.index_select(0, idx)
+
     def inner_fn(u, *consts):
-        return base.fn(embed(ui, u), *consts).index_select(0, ui)
+        return select(ui, base.fn(embed(ui, u), *consts))
 
     def fn(v, *consts):
         squeeze = v.dim() == 1
@@ -346,9 +359,9 @@ def make_schur_matvec(
         count(f"schur.applies.{vv.shape[1]}")
         with span("imgp.schur.apply"):
             t = base.fn(embed(li, vv), *consts)
-            sol = cg_solve(Operator(inner_fn, consts), t.index_select(0, ui), tol=cg_tol,
+            sol = cg_solve(Operator(inner_fn, consts), select(ui, t), tol=cg_tol,
                            max_iter=cg_max_iter, precond=inner_precond, log_label="schur_inner")
-            out = t.index_select(0, li) - base.fn(embed(ui, sol), *consts).index_select(0, li)
+            out = select(li, t) - select(li, base.fn(embed(ui, sol), *consts))
         return out[:, 0] if squeeze else out
 
     return Operator(fn, base.consts)

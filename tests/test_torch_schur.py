@@ -10,9 +10,11 @@ The same numpy inputs go through both packages on the CPU. A Schur apply
 runs a CG to its tolerance inside, so at the tight tolerances used here the
 two packages differ by f32 sum order and by where each inner CG stops.
 The forced-block case (``dense_operator_max_size=0, use_dia=False``) runs
-the Schur complement over the unpermuted block-ELL operator on the plain
-kernel versions and holds its gradients to JAX's: it catches a gradient
-lost through the inner solve.
+the masked Schur complement in padded-RCM space on the plain kernel
+versions and holds its gradients to JAX's: it catches a gradient lost
+through the inner solve. On block-ELL and DIA layouts that permuted form
+equals the index form (``make_schur_matvec`` over the unpermuted operator)
+on the same kernel, and gathers only at its boundary.
 """
 
 import jax
@@ -20,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from _dense_oracles import (
     dense_graph_laplacian,
@@ -35,11 +38,12 @@ from manifold_gp_tpu.ops import engine as jengine
 from manifold_gp_tpu.ops import graph as jgraph
 from manifold_gp_tpu.ops import laplacian as jlap
 from manifold_gp_tpu.ops import matern as jmat
+from manifold_gp_torch.ops import block_sparse, cg, dia
 from manifold_gp_torch.ops import graph as tgraph
 from manifold_gp_torch.ops import laplacian as tlap
 from manifold_gp_torch.ops import matern as tmat
 from manifold_gp_torch.ops.operator import Operator
-from manifold_gp_torch.utils import manifold_informed_train
+from manifold_gp_torch.utils import manifold_informed_train, metrics
 
 EPS = 0.35
 NU = 2
@@ -357,9 +361,10 @@ def test_semisup_training_runs_at_600():
 
 def test_forced_block_schur_loss_and_gradients_match_jax(monkeypatch):
     """The spiral's route at a small size: block-ELL forced
-    (``dense_operator_max_size=0, use_dia=False``), the Schur complement
-    over the unpermuted operator (permute in and out around every base
-    apply), the SLQ branch with 8 shared probes, the Jacobi preconditioners
+    (``dense_operator_max_size=0, use_dia=False``), the masked Schur
+    complement in padded-RCM space (the compact labeled vectors embedded at
+    the stack's boundary, nothing permuted inside an inner solve), the SLQ
+    branch with 8 shared probes, the Jacobi preconditioners
     and panel-space cotangents through the plain kernel versions; loss
     (1e-4) and gradients (5e-3 of the largest; CG at 1e-5 in both
     packages) against JAX's. An inner operator that closed over its tensors
@@ -382,6 +387,147 @@ def test_forced_block_schur_loss_and_gradients_match_jax(monkeypatch):
     np.testing.assert_allclose(tl, jl, rtol=1e-4)
     np.testing.assert_allclose(tgr, jgr, atol=5e-3 * np.abs(jgr).max())
     assert np.all(np.abs(tgr) > 0)
+
+
+def _index_form(model):
+    """``model.precision_matvec`` composed over the index form:
+    ``make_schur_matvec`` over the kernel's unpermuted operator
+    (``permuted_io=False``), then Scale and Noise."""
+    kernel, cfg = model.kernel, model.cfg
+
+    def precision_matvec(params, noise=True, coeffs=None):
+        mv = kernel.precision_matvec(params, coeffs=coeffs, permuted_io=False)
+        mv = tmat.make_schur_matvec(
+            mv, model._labeled_idx, model._unlabeled_idx, kernel.graph.num_nodes,
+            cg_tol=cfg.cg_tolerance, cg_max_iter=cfg.cg_max_iter,
+            precond_diag=(kernel.precision_diag(params, coeffs=coeffs)
+                          if cfg.cg_precondition else None))
+        mv = tmat.make_scaled_matvec(mv, model.outputscale(params))
+        return tmat.make_noisy_matvec(mv, model.noise(params)) if noise else mv
+
+    return precision_matvec
+
+
+def _layout_model(cg_tolerance=1e-5, **cfg_kw):
+    """A labeled model on a forced sparse layout over ``_medium``'s circle
+    (600 nodes, 60 labeled), the SLQ branch with 8 shared probes."""
+    x, y, labeled = _medium()
+    yl = (y[labeled] - y[labeled].mean()) / y[labeled].std(ddof=1)
+    cfg = T.InferenceConfig(max_cholesky=0, num_probes=8, lanczos_max_iter=16,
+                            cg_tolerance=cg_tolerance, cg_max_iter=2000,
+                            dense_operator_max_size=0, **cfg_kw)
+    kernel = T.RiemannMaternKernel(nu=2, x=x, nearest_neighbors=6,
+                                   laplacian_normalization="randomwalk", num_modes=10,
+                                   cfg=cfg, device="cpu")
+    model = T.RiemannGP(x[labeled], yl, kernel, labeled=labeled, cfg=cfg)
+    probes = torch.from_numpy(_rademacher(int(labeled.sum()), 8, seed=3))
+    return model, probes
+
+
+_LAYOUT_INIT = dict(noise=1e-2, outputscale=1.3, graphbandwidth=0.3, lengthscale=1.0)
+
+
+def _model_loss_and_grads(model, probes):
+    tp = {k: v.requires_grad_(True) for k, v in model.init_params(**_LAYOUT_INIT).items()}
+    loss = model.mll_loss(tp, probes=probes)
+    grads = torch.autograd.grad(loss, [tp[k] for k in RAW])
+    return float(loss.detach()), np.array([float(g) for g in grads])
+
+
+@pytest.mark.parametrize("layout, cfg_kw", [
+    ("BlockLayout", dict(use_dia=False)),
+    ("BlockLayout", dict(use_dia=False, solve_cotangent="edge")),
+    ("DiaLayout", dict(dia_max_offsets=48)),
+], ids=["block-panel", "block-edge", "dia"])
+def test_permuted_masked_schur_equals_the_index_form(layout, cfg_kw, monkeypatch):
+    """On a sparse layout (padding rows included: 600 nodes in 640 padded
+    block-ELL rows, or 2,048 DIA rows of halo, nodes and pad; the circle's
+    25 diagonals take DIA at ``dia_max_offsets=48``) the model runs the masked
+    Schur complement in padded-RCM space; its loss and gradients equal
+    those of the index form over the same kernel's unpermuted operator to
+    f32 sum order (the same Krylov sequences, CG at 1e-5: 1e-7 apart)."""
+    model, probes = _layout_model(**cfg_kw)
+    lay = model.kernel.block_layout
+    assert type(lay).__name__ == layout and lay.num_padded > lay.num_nodes
+    loss, grads = _model_loss_and_grads(model, probes)
+    monkeypatch.setattr(model, "precision_matvec", _index_form(model))
+    index_loss, index_grads = _model_loss_and_grads(model, probes)
+    np.testing.assert_allclose(loss, index_loss, rtol=1e-6)
+    np.testing.assert_allclose(grads, index_grads, atol=2e-6 * np.abs(index_grads).max())
+    assert np.all(np.abs(grads) > 0)
+
+
+def _traced_gathers(model, probes, monkeypatch):
+    """One loss and backward under tracing: (the ``schur.gathers.*``
+    counters, the applies of the composed operator, the inner CG
+    iterations, how many permute_in/out calls ran inside an inner solve)."""
+    inside = [False]
+    permutes_inside = [0]
+    applies = [0]
+    cg_raw = cg.cg_raw
+
+    def flagged_cg_raw(*args, log_label=None, **kw):
+        inside[0] = log_label == "schur_inner"
+        try:
+            return cg_raw(*args, log_label=log_label, **kw)
+        finally:
+            inside[0] = False
+
+    def counting(f):
+        def wrapped(*args, **kw):
+            permutes_inside[0] += inside[0]
+            return f(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(cg, "cg_raw", flagged_cg_raw)
+    for mod in (block_sparse, dia):
+        for name in ("permute_in", "permute_out"):
+            monkeypatch.setattr(mod, name, counting(getattr(mod, name)))
+    composed = model.precision_matvec
+
+    def counted(*args, **kw):
+        op = composed(*args, **kw)
+
+        def fn(v, *consts):
+            applies[0] += 1
+            return op.fn(v, *consts)
+
+        return Operator(fn, op.consts)
+
+    monkeypatch.setattr(model, "precision_matvec", counted)
+    tp = {k: v.requires_grad_(True) for k, v in model.init_params(**_LAYOUT_INIT).items()}
+    metrics.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            model.mll_loss(tp, probes=probes).backward()
+        counters = metrics.traced()["counters"]
+    finally:
+        metrics.reset()
+        monkeypatch.undo()
+    return counters, applies[0], counters["cg.iterations.schur_inner"], permutes_inside[0]
+
+
+@pytest.mark.parametrize("cg_tolerance", [1e-2, 1e-4])
+def test_layout_schur_gathers_only_at_its_boundary(cg_tolerance, monkeypatch):
+    """The mechanism: on a block-ELL layout (edge cotangents, the torus's
+    route) one loss and backward count one ``schur.gathers.embed`` and one
+    ``schur.gathers.select`` per apply of the composed operator, whatever
+    the inner iteration count, and no permute_in/out runs inside an inner
+    solve. The index form over the same kernel gathers at every inner
+    iteration and permutes inside its inner solves."""
+    model, probes = _layout_model(cg_tolerance=cg_tolerance, use_dia=False,
+                                  solve_cotangent="edge")
+    counters, applies, inner_iters, permutes_inside = _traced_gathers(model, probes,
+                                                                      monkeypatch)
+    assert applies > 0 and inner_iters > 2 * applies
+    assert counters["schur.gathers.embed"] == counters["schur.gathers.select"] == applies
+    assert metrics.counter_sum(counters, "schur.gathers") == 2 * applies
+    assert permutes_inside == 0
+    monkeypatch.setattr(model, "precision_matvec", _index_form(model))
+    counters, applies, inner_iters, permutes_inside = _traced_gathers(model, probes,
+                                                                      monkeypatch)
+    assert metrics.counter_sum(counters, "schur.gathers") >= 2 * inner_iters > 4 * applies
+    assert permutes_inside >= 2 * inner_iters
 
 
 def test_deflation_refuses_a_labeled_model():
