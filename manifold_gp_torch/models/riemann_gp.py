@@ -13,11 +13,9 @@ Semisupervised (``labeled``, a boolean mask over the kernel's nodes): the
 graph covers every node, the labels only the masked ones. The loss runs on
 the labeled block's Schur complement of the precision, one inner CG on the
 unlabeled block per apply, and the posterior reaches the labeled points
-through Nyström features. With a sparse layout the Schur complement runs in
-padded-RCM space on full-length masked vectors
-(``ops.matern.make_schur_matvec_masked``), indexed only where the stack
-meets the compact labeled vectors; without one it indexes node rows
-(``ops.matern.make_schur_matvec``).
+through Nyström features. The Schur complement runs on full-length masked
+vectors in the model's vector space (``ops.matern.make_schur_matvec_masked``),
+indexed only where the stack meets the compact labeled vectors.
 
 Prediction uses the exact feature-space (Woodbury) posterior: with
 K = s Z Z' + sigma^2 I and C = (sigma^2/s) I_m + Z'Z,
@@ -58,11 +56,10 @@ from ..config import DEFAULT_CONFIG, InferenceConfig
 from ..ops import engine
 from ..ops.bump import bump_function
 from ..ops.matern import (
-    labeled_split,
+    _at_rows,
     make_jacobi_precond,
     make_noisy_matvec,
     make_scaled_matvec,
-    make_schur_matvec,
     make_schur_matvec_masked,
     noisy_scaled_diag,
 )
@@ -107,19 +104,6 @@ class RiemannGP:
         self.cfg = cfg
         self.use_outputscale = use_outputscale
         self.labeled = None if labeled is None else np.asarray(labeled, bool)
-        if self.labeled is not None:
-            self._labeled_idx, self._unlabeled_idx = labeled_split(self.labeled)
-            self._labeled_rows = torch.as_tensor(self._labeled_idx, device=self.device)
-            layout = kernel.block_layout
-            if layout is not None:
-                # The Schur complement in padded-RCM space: the labeled rows'
-                # permuted positions (the boundary) and the node masks
-                # carried there (padding, halo and pad rows in neither).
-                self._labeled_prows = layout.unperm[self._labeled_rows]
-                mask_l = torch.as_tensor(self.labeled, dtype=torch.float32,
-                                         device=self.device)
-                self._pmask_l = permute_in(layout, mask_l)
-                self._pmask_u = permute_in(layout, 1.0 - mask_l)
         self._noise_decl = ConstrainedParam(
             "noise",
             noise_constraint if noise_constraint is not None else GreaterThan(1e-8),
@@ -130,9 +114,14 @@ class RiemannGP:
         self.train_is_graph = self.train_x.shape == kernel.x.shape and bool(
             torch.equal(self.train_x, kernel.x)
         )
-        # Mesh kernels: the static embeddings of this rank's rows of the
-        # padded space: the labels at their support rows, the 0/1
-        # labeled/unlabeled masks, and which support entries this rank holds.
+        # The model's vector space, decided once: this rank's rows of the
+        # padded row-sharded space on a mesh kernel, padded-RCM order on a
+        # sparse layout, node order otherwise. ``_mask_l`` / ``_mask_u``: the
+        # 0/1 labeled and unlabeled row masks there (padding, halo and pad
+        # rows in neither); on a mesh ``_mask_l`` marks the support (every
+        # node of a supervised model), and the labels sit at their support
+        # rows. A labeled single-device model keeps its labeled rows'
+        # positions there (``_space_rows``, the Schur boundary).
         self.mesh = getattr(kernel, "mesh", None)
         if self.mesh is not None:
             n_nodes = kernel.graph.num_nodes
@@ -158,6 +147,17 @@ class RiemannGP:
             self._y_pad = dev(y_pad, torch.float32)
             self._mask_l = dev(mask_l, torch.float32)
             self._mask_u = dev(mask_u, torch.float32)
+        elif self.labeled is not None:
+            self._labeled_rows = torch.as_tensor(np.flatnonzero(self.labeled),
+                                                 device=self.device)
+            mask_l = torch.as_tensor(self.labeled, dtype=torch.float32, device=self.device)
+            self._mask_l, self._mask_u = mask_l, 1.0 - mask_l
+            self._space_rows = self._labeled_rows
+            layout = kernel.block_layout
+            if layout is not None:
+                self._mask_l = permute_in(layout, self._mask_l)
+                self._mask_u = permute_in(layout, self._mask_u)
+                self._space_rows = layout.unperm[self._labeled_rows]
 
     # -- parameters --------------------------------------------------------
     def init_params(self, noise: float = None, outputscale: float = None,
@@ -196,63 +196,50 @@ class RiemannGP:
     # -- precision operator stack -----------------------------------------
     def precision_matvec(self, params, noise: bool = True, coeffs=None) -> Operator:
         """Compose Schur (semisupervised) -> Scale -> Noise over the
-        kernel's precision.
+        kernel's precision, in the model's vector space (``__init__``):
+        padded-RCM order on a sparse layout (block-ELL or DIA), node order
+        without one, this rank's rows of the padded space on a mesh kernel.
 
-        On the block-sparse path (block-ELL or DIA) the whole composition
-        runs in padded-RCM space: the scalar Scale/Noise wrappers commute
-        with the permutation, so the boundary around the stack replaces
-        per-Laplacian-matvec row gathers (a noisy nu=2 apply does 6 of
-        them). Supervised, the boundary is one permute_in/out pair. A
-        labeled model runs the Schur complement there too, in its masked
-        full-length form (``make_schur_matvec_masked`` over the node masks
-        carried into permuted space), so its inner solves gather nothing;
-        the boundary embeds the compact labeled vector at the labeled
-        rows' permuted positions and selects them back (counters
-        ``schur.gathers.embed`` / ``.select``). Without a layout the Schur
-        complement is the index form ``make_schur_matvec``. On a mesh
-        kernel: ``_precision_matvec_sharded``."""
-        if self.mesh is not None:
-            return self._precision_matvec_sharded(params, noise=noise, coeffs=coeffs)
-        layout = self.kernel.block_layout
-        permuted = layout is not None
-        mv = self.kernel.precision_matvec(params, coeffs=coeffs, permuted_io=permuted)
+        A labeled model runs the masked Schur complement
+        (``make_schur_matvec_masked`` over the model's masks, Jacobi on the
+        kernel's diagonal carried into the same space), so its inner
+        solves gather and permute nothing. On one device a boundary wraps
+        the whole stack: the scalar Scale/Noise wrappers commute with the
+        permutation, and S maps vectors supported on the labeled rows to
+        such vectors, so one boundary replaces per-Laplacian-matvec row
+        gathers (a noisy nu=2 apply does 6 of them). Supervised on a
+        layout, it is one permute_in/out pair; labeled, it embeds the
+        compact labeled vector at the labeled rows' positions and selects
+        them back (``ops.matern._at_rows``, counters
+        ``schur.gathers.embed`` / ``.select``). On a mesh there is no
+        boundary: callers embed at the support rows (``support_rows``)."""
+        mv = self.kernel.precision_matvec(params, coeffs=coeffs, permuted_io=True)
         if self.labeled is not None:
-            pd = (self.kernel.precision_diag(params, coeffs=coeffs)
+            pd = (self._precision_diag_in_space(params, coeffs=coeffs)
                   if self.cfg.cg_precondition else None)
-            solve = dict(cg_tol=self.cfg.cg_tolerance, cg_max_iter=self.cfg.cg_max_iter)
-            if permuted:
-                mv = make_schur_matvec_masked(
-                    mv, self._pmask_l, self._pmask_u, **solve,
-                    precond_diag=None if pd is None else permute_in(layout, pd))
-            else:
-                mv = make_schur_matvec(mv, self._labeled_idx, self._unlabeled_idx,
-                                       self.kernel.graph.num_nodes, **solve, precond_diag=pd)
+            mv = make_schur_matvec_masked(mv, self._mask_l, self._mask_u,
+                                          cg_tol=self.cfg.cg_tolerance,
+                                          cg_max_iter=self.cfg.cg_max_iter, precond_diag=pd)
         if self.use_outputscale:
             mv = make_scaled_matvec(mv, self.outputscale(params))
         if noise:
             mv = make_noisy_matvec(mv, self.noise(params))
-        if permuted:
-            inner = mv.fn
-            if self.labeled is None:
-                def boundary(vv, *consts):
-                    return permute_out(layout, inner(permute_in(layout, vv), *consts))
-            else:
-                rows = self._labeled_prows
+        if self.mesh is not None:
+            return mv
+        if self.labeled is not None:
+            return _at_rows(mv, self._space_rows, self._mask_l.shape[0])
+        layout = self.kernel.block_layout
+        if layout is None:
+            return mv
+        inner = mv.fn
 
-                def boundary(vv, *consts):
-                    count("schur.gathers.embed")
-                    pv = vv.new_zeros((layout.num_padded, vv.shape[1])).index_copy(0, rows, vv)
-                    out = inner(pv, *consts)
-                    count("schur.gathers.select")
-                    return out.index_select(0, rows)
+        def fn(v, *consts):
+            squeeze = v.dim() == 1
+            out = permute_out(layout, inner(permute_in(layout, v[:, None] if squeeze else v),
+                                            *consts))
+            return out[:, 0] if squeeze else out
 
-            def fn(v, *consts):
-                squeeze = v.dim() == 1
-                out = boundary(v[:, None] if squeeze else v, *consts)
-                return out[:, 0] if squeeze else out
-
-            mv = Operator(fn, mv.consts)
-        return mv
+        return Operator(fn, mv.consts)
 
     # -- the row-sharded path (mesh kernels) -----------------------------------
     def support_rows(self, values: torch.Tensor) -> torch.Tensor:
@@ -265,30 +252,17 @@ class RiemannGP:
         out[self._support_local_rows] = values[self._support_local_ids]
         return out
 
-    def _precision_matvec_sharded(self, params, noise: bool = True, coeffs=None) -> Operator:
-        """The kernel's row-sharded Matérn operator -> masked Schur
-        (semisupervised) -> Scale -> Noise, on this rank's rows of the
-        padded space; equal to ``precision_matvec`` of one device embedded
-        at the support rows."""
-        mv = self.kernel.precision_matvec(params, coeffs=coeffs)
-        if self.labeled is not None:
-            pd = (self._padded_precision_diag(params, coeffs=coeffs)
-                  if self.cfg.cg_precondition else None)
-            mv = make_schur_matvec_masked(mv, self._mask_l, self._mask_u,
-                                          cg_tol=self.cfg.cg_tolerance,
-                                          cg_max_iter=self.cfg.cg_max_iter, precond_diag=pd)
-        if self.use_outputscale:
-            mv = make_scaled_matvec(mv, self.outputscale(params))
-        if noise:
-            mv = make_noisy_matvec(mv, self.noise(params))
-        return mv
-
     @torch.no_grad()
-    def _padded_precision_diag(self, params, coeffs=None):
-        """diag(Q) on this rank's rows of the padded space (1.0 on padding,
-        so a Jacobi division is the identity there)."""
+    def _precision_diag_in_space(self, params, coeffs=None):
+        """diag(Q) in the model's vector space: on a mesh, this rank's rows
+        of the padded space (1.0 on padding, so a Jacobi division is the
+        identity there); padded-RCM order on a layout; node order
+        otherwise."""
         d = self.kernel.precision_diag(params, coeffs=coeffs)
-        return self.kernel.embed_mesh_coeff(d, fill=1.0)
+        if self.mesh is not None:
+            return self.kernel.embed_mesh_coeff(d, fill=1.0)
+        layout = self.kernel.block_layout
+        return d if layout is None else permute_in(layout, d)
 
     @torch.no_grad()
     def _precond_obj_sharded(self, params, matvec=None, coeffs=None):
@@ -304,7 +278,7 @@ class RiemannGP:
 
         mask = self._mask_l
         d_noisy = noisy_scaled_diag(
-            self._padded_precision_diag(params, coeffs=coeffs),
+            self._precision_diag_in_space(params, coeffs=coeffs),
             scale=self.outputscale(params) if self.use_outputscale else None,
             noise=self.noise(params),
         )
@@ -347,7 +321,7 @@ class RiemannGP:
         cfg = self.cfg
         with use_mesh(self.mesh):
             c = self.kernel.coeffs(params)
-            mv = self._precision_matvec_sharded(params, noise=True, coeffs=c)
+            mv = self.precision_matvec(params, noise=True, coeffs=c)
             y_pad = self._y_pad
             quad = row_sum(y_pad * mv(y_pad[:, None])[:, 0])
             if n <= cfg.max_cholesky:
@@ -621,7 +595,7 @@ class RiemannGP:
         mine = (rows >= 0) & (rows < count)
         rhs = torch.zeros((count, idx.shape[0]), dtype=torch.float32, device=self.device)
         rhs[rows[mine], torch.arange(idx.shape[0], device=self.device)[mine]] = 1.0
-        precond = (make_jacobi_precond(self._padded_precision_diag(params))
+        precond = (make_jacobi_precond(self._precision_diag_in_space(params))
                    if cfg.cg_precondition else None)
         with use_mesh(self.mesh):
             x = cg_solve(mv, rhs, tol=cfg.cg_tolerance, max_iter=cfg.cg_max_iter,

@@ -20,25 +20,23 @@
     precision Q_ll - Q_lu Q_uu^{-1} Q_ul, each apply an inner CG on the
     unlabeled block: the span ``imgp.schur.apply`` and the counter
     ``schur.applies.<columns>`` (``utils.metrics``) while tracing; the inner
-    solves count as ``cg.*.schur_inner`` (``ops.cg``). Two forms:
-    ``make_schur_matvec`` indexes node rows (an embed and a select around
-    every base apply, inner ones included), and runs where the kernel has
-    no sparse layout (the dense operator, the ELL gather loop);
-    ``make_schur_matvec_masked`` works on full-length vectors with 0/1 row
-    masks, and runs in padded-RCM space on a single device with a layout
-    (``RiemannGP.precision_matvec``, whose boundary does the only index
-    work) and on each rank's rows of a mesh kernel. Each index gather or
-    scatter the Schur code issues counts ``schur.gathers.<embed|select>``.
+    solves count as ``cg.*.schur_inner`` (``ops.cg``). One form runs the
+    nested solve, ``make_schur_matvec_masked``: full-length vectors and 0/1
+    row masks, in whatever vector space the base operator works in (node
+    order, padded-RCM order, or a rank's rows of a mesh). Compact
+    [n_labeled, B] vectors meet it at one boundary, ``_at_rows``, which
+    embeds them at the labeled rows and selects those rows back: the only
+    index work of the Schur code, counted ``schur.gathers.<embed|select>``
+    once each per apply of what it wraps. ``make_schur_matvec`` is the
+    index-array entry point: the masked form over node masks behind that
+    boundary. ``RiemannGP.precision_matvec`` puts the boundary outside its
+    whole stack instead (Scale and Noise commute with it).
 
 Each factory here returns an ``ops.operator.Operator``: the matvec [n, B] ->
 [n, B] together with the tensors it depends on, which the solvers of
 ``ops.cg`` and ``ops.slq`` need to return their gradients. On a row-sharded
 operator (``Operator.mesh``) the wrappers keep the mesh, and the scalars
 they add enter the sharded computation through ``Operator.entered``.
-
-``make_schur_matvec_masked`` is the Schur complement in full-length masked
-form, made of elementwise masks only: the form a model with a sparse layout
-runs, in permuted space on one device and row-sharded on a mesh.
 """
 
 from __future__ import annotations
@@ -307,6 +305,25 @@ def make_noisy_matvec(matvec, noise) -> Operator:
     return Operator(mv, (*op.consts, noise), mesh=op.mesh)
 
 
+def _at_rows(op: Operator, rows: torch.Tensor, n: int) -> Operator:
+    """``op`` (on [n, B] vectors) on compact [len(rows), B] ones: each apply
+    embeds at ``rows`` of an n-row zero vector, applies ``op`` and selects
+    those rows back. The boundary of a Schur complement that acts on
+    vectors supported on ``rows`` (``schur.gathers.embed`` / ``.select``,
+    once each per apply). Shares ``op``'s ``consts``; one device only."""
+
+    def fn(v, *consts):
+        squeeze = v.dim() == 1
+        vv = v[:, None] if squeeze else v
+        count("schur.gathers.embed")
+        out = op.fn(vv.new_zeros((n, vv.shape[1])).index_copy(0, rows, vv), *consts)
+        count("schur.gathers.select")
+        out = out.index_select(0, rows)
+        return out[:, 0] if squeeze else out
+
+    return Operator(fn, op.consts)
+
+
 def make_schur_matvec(
     base_matvec,
     labeled_idx,
@@ -316,21 +333,13 @@ def make_schur_matvec(
     cg_max_iter: int = 1000,
     precond_diag: Optional[torch.Tensor] = None,
 ) -> Operator:
-    """Effective labeled-block precision S = Q_ll - Q_lu Q_uu^{-1} Q_ul via
-    an inner CG on the unlabeled block. ``labeled_idx`` / ``unlabeled_idx``
-    are index arrays (``labeled_split``), turned into device index tensors
-    once here. ``precond_diag``: optional [n] diagonal of the base operator;
-    the inner CG then runs Jacobi-preconditioned on its unlabeled
-    restriction (detached: a preconditioner gets no gradient).
-
-    The result shares the base operator's ``consts``; its ``fn`` builds the
-    inner operator over the tensors it is handed, so the inner solve's
-    backward returns their cotangents (what ``jax.closure_convert`` does for
-    the JAX package's nested ``cg_solve``). An inner operator that closed
-    over the tensors instead would drop the gradient through the solve.
-    """
-    from .cg import cg_solve
-
+    """Effective labeled-block precision S = Q_ll - Q_lu Q_uu^{-1} Q_ul on
+    compact [n_labeled, B] vectors: ``make_schur_matvec_masked`` over the
+    node masks of ``labeled_idx`` / ``unlabeled_idx`` (index arrays,
+    ``labeled_split``), behind the boundary that embeds at the labeled rows
+    and selects them back (``_at_rows``). ``precond_diag``: optional [n]
+    diagonal of the base operator; the inner CG then runs
+    Jacobi-preconditioned. Shares the base operator's ``consts``."""
     base = as_operator(base_matvec)
     if precond_diag is not None:
         device = precond_diag.device
@@ -338,33 +347,11 @@ def make_schur_matvec(
         device = base.consts[0].device if base.consts else torch.device("cpu")
     li = torch.as_tensor(np.asarray(labeled_idx), dtype=torch.int64, device=device)
     ui = torch.as_tensor(np.asarray(unlabeled_idx), dtype=torch.int64, device=device)
-    inner_precond = None
-    if precond_diag is not None:
-        inner_precond = make_jacobi_precond(precond_diag.detach().index_select(0, ui))
-
-    def embed(idx, u):
-        count("schur.gathers.embed")
-        return u.new_zeros((n, u.shape[1])).index_copy(0, idx, u)
-
-    def select(idx, u):
-        count("schur.gathers.select")
-        return u.index_select(0, idx)
-
-    def inner_fn(u, *consts):
-        return select(ui, base.fn(embed(ui, u), *consts))
-
-    def fn(v, *consts):
-        squeeze = v.dim() == 1
-        vv = v[:, None] if squeeze else v
-        count(f"schur.applies.{vv.shape[1]}")
-        with span("imgp.schur.apply"):
-            t = base.fn(embed(li, vv), *consts)
-            sol = cg_solve(Operator(inner_fn, consts), select(ui, t), tol=cg_tol,
-                           max_iter=cg_max_iter, precond=inner_precond, log_label="schur_inner")
-            out = select(li, t) - select(li, base.fn(embed(ui, sol), *consts))
-        return out[:, 0] if squeeze else out
-
-    return Operator(fn, base.consts)
+    zeros = torch.zeros(n, dtype=torch.float32, device=device)
+    masked = make_schur_matvec_masked(base, zeros.index_fill(0, li, 1.0),
+                                      zeros.index_fill(0, ui, 1.0), cg_tol=cg_tol,
+                                      cg_max_iter=cg_max_iter, precond_diag=precond_diag)
+    return _at_rows(masked, li, n)
 
 
 def make_schur_matvec_masked(
@@ -387,8 +374,15 @@ def make_schur_matvec_masked(
     elementwise mask, so on a row-sharded base operator the whole nested
     solve stays on each rank's rows. ``precond_diag``: the base operator's
     diagonal on the same rows; the inner CG then runs Jacobi-preconditioned
-    (1.0 off the unlabeled rows; detached). Shares the base operator's
-    ``consts`` and mesh, as ``make_schur_matvec`` does."""
+    (1.0 off the unlabeled rows; detached: a preconditioner gets no
+    gradient).
+
+    The result shares the base operator's ``consts`` and mesh; its ``fn``
+    builds the inner operator over the tensors it is handed, so the inner
+    solve's backward returns their cotangents (what ``jax.closure_convert``
+    does for the JAX package's nested ``cg_solve``). An inner operator that
+    closed over the tensors instead would drop the gradient through the
+    solve."""
     from .cg import cg_solve
 
     base = as_operator(base_matvec)

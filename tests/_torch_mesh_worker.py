@@ -320,7 +320,7 @@ def scenario_dense_chunked(mesh, x, y, edges, cfg_kw, labeled):
     n = model.num_data
     rows, ids = model._support_local_rows, model._support_local_ids
     with torch.no_grad(), use_mesh(mesh):
-        mv = model._precision_matvec_sharded(params, noise=True)
+        mv = model.precision_matvec(params, noise=True)
         count = model._y_pad.shape[0]
         rhs = torch.zeros((count, n))
         rhs[rows, ids] = 1.0

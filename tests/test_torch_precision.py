@@ -209,13 +209,18 @@ def test_edge_mode_panels_carry_no_gradient_and_bad_inputs_raise(graphs):
                                           grad_space="edge")
     with pytest.raises(ValueError, match="normalization"):
         tmat.make_matern_precision_matvec(tg, tc, 2, LS, "other", block=(tl, None))
-    # the Schur complement composes over the edge-mode operator too, in its
-    # index form and in the masked form of the multi-GPU path
+    # the Schur complement composes over the edge-mode operator too: its
+    # index-array entry point as JAX's over JAX's edge-mode operator, and
+    # the masked form on full-length vectors
     labeled = np.arange(tg.num_nodes) % 4 == 0
     li, ui = tmat.labeled_split(labeled)
-    schur = tmat.make_schur_matvec(op, li, ui, tg.num_nodes)
+    schur = tmat.make_schur_matvec(op, li, ui, tg.num_nodes, cg_tol=1e-8, cg_max_iter=2000)
     assert schur.consts == op.consts
-    assert torch.all(torch.isfinite(schur(torch.ones(len(li), 2))))
+    v = _vec(len(li), batch=2, seed=5)
+    jschur = jmat.make_schur_matvec(_jax_op(graphs, "edge", 2, "randomwalk"), li, ui,
+                                    tg.num_nodes, cg_tol=1e-8, cg_max_iter=2000)
+    _close(schur(torch.from_numpy(v)).detach().numpy(), jax.jit(jschur)(jnp.asarray(v)),
+           tol=1e-5)
     ml = torch.from_numpy(labeled.astype(np.float32))
     masked = tmat.make_schur_matvec_masked(op, ml, 1.0 - ml)
     assert masked.consts == op.consts

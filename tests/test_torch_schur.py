@@ -1,5 +1,6 @@
 """Port vs JAX: the semisupervised Schur path — ``labeled_split``,
-``make_schur_matvec`` (nested CG), and ``RiemannGP(labeled=...)``'s loss,
+``make_schur_matvec`` (the masked nested CG behind its index boundary),
+and ``RiemannGP(labeled=...)``'s loss,
 gradients, preconditioning and training (twins of
 tests/test_precision.py::test_schur_complement / ::test_schur_gradient_flows,
 tests/test_models.py::test_semisupervised_schur_training, a small case of
@@ -8,13 +9,15 @@ tests/test_precondition.py::test_model_loss_same_with_precondition).
 
 The same numpy inputs go through both packages on the CPU. A Schur apply
 runs a CG to its tolerance inside, so at the tight tolerances used here the
-two packages differ by f32 sum order and by where each inner CG stops.
-The forced-block case (``dense_operator_max_size=0, use_dia=False``) runs
-the masked Schur complement in padded-RCM space on the plain kernel
-versions and holds its gradients to JAX's: it catches a gradient lost
-through the inner solve. On block-ELL and DIA layouts that permuted form
-equals the index form (``make_schur_matvec`` over the unpermuted operator)
-on the same kernel, and gathers only at its boundary.
+two packages differ by f32 sum order and by where each inner CG stops. The
+port has one Schur complement, the masked form: the operator tests hold it
+(through ``make_schur_matvec``) to JAX's index form. The forced-block case
+(``dense_operator_max_size=0, use_dia=False``) runs it in padded-RCM space
+on the plain kernel versions and holds its gradients to JAX's: it catches a
+gradient lost through the inner solve. On block-ELL and DIA layouts the
+model's permuted stack equals the node-order composition
+(``make_schur_matvec`` over the unpermuted operator) on the same kernel;
+both gather only at their boundary, the model's once around its whole stack.
 """
 
 import jax
@@ -180,14 +183,15 @@ def test_schur_gradient_flows(graphs):
 def test_iteration_log_labels_the_inner_solves(graphs):
     """``ops.cg.iteration_log`` tells the Schur operator's inner solves
     (forward and adjoint) from an outer solve on it by their label, also
-    when both blocks have the same number of rows."""
+    when both blocks have the same number of rows. The inner solves run
+    on the masked form's full-length vectors: every node's row."""
     from manifold_gp_torch.ops import cg
 
     _, tg = graphs
     n = tg.num_nodes - tg.num_nodes % 2
     labeled = np.zeros(tg.num_nodes, bool)
     labeled[: n // 2] = True
-    n_lab, n_unl = int(labeled.sum()), int((~labeled).sum())
+    n_lab = int(labeled.sum())
     li, ui = tmat.labeled_split(labeled)
     ls = torch.tensor(LS, requires_grad=True)
     base = tmat.make_matern_precision_matvec(tg, tlap.laplacian_coeffs(tg, EPS), NU, ls,
@@ -203,7 +207,7 @@ def test_iteration_log_labels_the_inner_solves(graphs):
         cg.iteration_log = None
     inner = [e for e in log if e[0] == "schur_inner"]
     outer = [e for e in log if e[0] is None]
-    assert {e[1] for e in inner} == {n_unl} and {e[1] for e in outer} == {n_lab}
+    assert {e[1] for e in inner} == {tg.num_nodes} and {e[1] for e in outer} == {n_lab}
     # two outer solves (forward, adjoint); each outer iteration's apply runs
     # one inner solve, and the backward's operator VJP runs more (forward
     # and adjoint inner solves), all labeled
@@ -390,15 +394,16 @@ def test_forced_block_schur_loss_and_gradients_match_jax(monkeypatch):
 
 
 def _index_form(model):
-    """``model.precision_matvec`` composed over the index form:
-    ``make_schur_matvec`` over the kernel's unpermuted operator
-    (``permuted_io=False``), then Scale and Noise."""
+    """``model.precision_matvec`` composed in node order:
+    ``make_schur_matvec`` (its boundary inside Scale and Noise) over the
+    kernel's unpermuted operator (``permuted_io=False``)."""
     kernel, cfg = model.kernel, model.cfg
+    li, ui = tmat.labeled_split(model.labeled)
 
     def precision_matvec(params, noise=True, coeffs=None):
         mv = kernel.precision_matvec(params, coeffs=coeffs, permuted_io=False)
         mv = tmat.make_schur_matvec(
-            mv, model._labeled_idx, model._unlabeled_idx, kernel.graph.num_nodes,
+            mv, li, ui, kernel.graph.num_nodes,
             cg_tol=cfg.cg_tolerance, cg_max_iter=cfg.cg_max_iter,
             precond_diag=(kernel.precision_diag(params, coeffs=coeffs)
                           if cfg.cg_precondition else None))
@@ -410,12 +415,13 @@ def _index_form(model):
 
 def _layout_model(cg_tolerance=1e-5, **cfg_kw):
     """A labeled model on a forced sparse layout over ``_medium``'s circle
-    (600 nodes, 60 labeled), the SLQ branch with 8 shared probes."""
+    (600 nodes, 60 labeled; the dense operator when ``cfg_kw`` raises
+    ``dense_operator_max_size``), the SLQ branch with 8 shared probes."""
     x, y, labeled = _medium()
     yl = (y[labeled] - y[labeled].mean()) / y[labeled].std(ddof=1)
     cfg = T.InferenceConfig(max_cholesky=0, num_probes=8, lanczos_max_iter=16,
                             cg_tolerance=cg_tolerance, cg_max_iter=2000,
-                            dense_operator_max_size=0, **cfg_kw)
+                            **{"dense_operator_max_size": 0, **cfg_kw})
     kernel = T.RiemannMaternKernel(nu=2, x=x, nearest_neighbors=6,
                                    laplacian_normalization="randomwalk", num_modes=10,
                                    cfg=cfg, device="cpu")
@@ -444,8 +450,9 @@ def test_permuted_masked_schur_equals_the_index_form(layout, cfg_kw, monkeypatch
     block-ELL rows, or 2,048 DIA rows of halo, nodes and pad; the circle's
     25 diagonals take DIA at ``dia_max_offsets=48``) the model runs the masked
     Schur complement in padded-RCM space; its loss and gradients equal
-    those of the index form over the same kernel's unpermuted operator to
-    f32 sum order (the same Krylov sequences, CG at 1e-5: 1e-7 apart)."""
+    those of the node-order composition (``make_schur_matvec``) over the
+    same kernel's unpermuted operator to f32 sum order (the same Krylov
+    sequences, CG at 1e-5: 1e-7 apart)."""
     model, probes = _layout_model(**cfg_kw)
     lay = model.kernel.block_layout
     assert type(lay).__name__ == layout and lay.num_padded > lay.num_nodes
@@ -507,16 +514,25 @@ def _traced_gathers(model, probes, monkeypatch):
     return counters, applies[0], counters["cg.iterations.schur_inner"], permutes_inside[0]
 
 
-@pytest.mark.parametrize("cg_tolerance", [1e-2, 1e-4])
-def test_layout_schur_gathers_only_at_its_boundary(cg_tolerance, monkeypatch):
+@pytest.mark.parametrize("cg_tolerance, layout", [
+    pytest.param(1e-2, True, id="0.01"),
+    pytest.param(1e-4, True, id="0.0001"),
+    pytest.param(1e-2, False, id="dense"),
+])
+def test_layout_schur_gathers_only_at_its_boundary(cg_tolerance, layout, monkeypatch):
     """The mechanism: on a block-ELL layout (edge cotangents, the torus's
-    route) one loss and backward count one ``schur.gathers.embed`` and one
-    ``schur.gathers.select`` per apply of the composed operator, whatever
-    the inner iteration count, and no permute_in/out runs inside an inner
-    solve. The index form over the same kernel gathers at every inner
-    iteration and permutes inside its inner solves."""
-    model, probes = _layout_model(cg_tolerance=cg_tolerance, use_dia=False,
-                                  solve_cotangent="edge")
+    route), and in node order on the dense operator (no layout: 600 nodes
+    at the default ``dense_operator_max_size``), one loss and backward
+    count one ``schur.gathers.embed`` and one ``schur.gathers.select`` per
+    apply of the composed operator, whatever the inner iteration count,
+    and no permute_in/out runs inside an inner solve. The node-order
+    composition gathers at its own boundary, once each per Schur apply
+    (inside Noise: three per composed apply), and on a layout permutes
+    inside its inner solves."""
+    kw = dict(use_dia=False, solve_cotangent="edge") if layout else dict(
+        dense_operator_max_size=4096)
+    model, probes = _layout_model(cg_tolerance=cg_tolerance, **kw)
+    assert (model.kernel.block_layout is not None) == layout
     counters, applies, inner_iters, permutes_inside = _traced_gathers(model, probes,
                                                                       monkeypatch)
     assert applies > 0 and inner_iters > 2 * applies
@@ -526,8 +542,13 @@ def test_layout_schur_gathers_only_at_its_boundary(cg_tolerance, monkeypatch):
     monkeypatch.setattr(model, "precision_matvec", _index_form(model))
     counters, applies, inner_iters, permutes_inside = _traced_gathers(model, probes,
                                                                       monkeypatch)
-    assert metrics.counter_sum(counters, "schur.gathers") >= 2 * inner_iters > 4 * applies
-    assert permutes_inside >= 2 * inner_iters
+    schur_applies = metrics.counter_sum(counters, "schur.applies")
+    assert schur_applies == 3 * applies
+    assert metrics.counter_sum(counters, "schur.gathers") == 2 * schur_applies
+    if layout:
+        assert permutes_inside >= 2 * inner_iters
+    else:
+        assert permutes_inside == 0
 
 
 def test_deflation_refuses_a_labeled_model():
